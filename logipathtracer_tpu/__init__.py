@@ -1,12 +1,14 @@
-"""TPU-native progressive Monte Carlo path tracer.
+"""Progressive Monte Carlo path tracer in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 PrimozLavric/LogiPathTracer (C++17 / Vulkan / GLSL): a progressive,
 unidirectional path tracer for glTF 2.0 scenes with a two-level BVH,
 Heitz multiple-scattering microfacet BSDFs, and interactive progressive
 accumulation.  The reference's two GPU backends (compute megakernel +
-RTX pipeline) collapse here into one TPU wavefront architecture; the
-Vulkan host runtime is replaced by the XLA runtime + jit.
+RTX pipeline) collapse here into one jitted renderer (lockstep
+megakernel, or a pooled wavefront), with BVH traversal in a CUDA kernel
+on the GPU; the Vulkan host runtime is replaced by the XLA runtime +
+jit.
 
 Reference layer map: see SURVEY.md.
 """

@@ -57,9 +57,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--cpu", action="store_true", help="force CPU backend")
     p.add_argument("--renderer", default="auto",
                    choices=["auto", "wavefront", "megakernel"],
-                   help="frame loop: pooled wavefront (TPU default) or "
-                        "lockstep megakernel (the reference's RendererPT "
-                        "shape; CPU default)")
+                   help="frame loop: lockstep megakernel (the "
+                        "reference's RendererPT shape; auto) or pooled "
+                        "wavefront")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a jax.profiler trace to DIR "
                         "(SURVEY.md §5.1 instrumentation)")
@@ -92,25 +92,8 @@ def _build(args):
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    # Persistent XLA compile cache: remote TPU AOT compiles cost
-    # 100-300 s per new render graph; cached reruns pay seconds.
-    # Precedence: LPT_COMPILE_CACHE env > the repo checkout's shared
-    # tests/.jax_cache (so the CLI hits the graphs bench/prewarm
-    # already compiled — a 1080p `web` session otherwise recompiles
-    # ~15 min of warm graphs into a second dir) > ~/.cache/lpt_xla.
-    repo_cache = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))), "tests", ".jax_cache")
-    cache = os.environ.get(
-        "LPT_COMPILE_CACHE",
-        repo_cache if os.path.isdir(repo_cache)
-        else os.path.join(os.path.expanduser("~"), ".cache", "lpt_xla"))
-    if cache and not args.cpu:
-        # TPU runs only: XLA:CPU executable (de)serialization segfaults
-        # intermittently on this host (utils/cache.py docstring).
-        os.makedirs(cache, exist_ok=True)
     from logipathtracer_tpu.utils.cache import configure_compile_cache
-    configure_compile_cache(jax, cache, cpu=args.cpu or not cache)
+    configure_compile_cache(jax)
     cfg = _make_cfg(args, args.width, args.height)
     log.info("loading %s", args.scene)
     gltf = load_gltf(args.scene)
@@ -136,9 +119,8 @@ def _build_web(args):
     cfg_p = _make_cfg(args, pw, ph)
     # Navigation preview trades fidelity for display rate in TWO ways:
     # resolution (above) and path depth — a depth-limited preview cuts
-    # the per-frame wavefront iteration count ~depth-proportionally
-    # (the ~160 ms relay sync floor + per-iteration cost dominate small
-    # frames).  Converge frames are always full-depth/full-res.
+    # the per-frame bounce count ~depth-proportionally.  Converge
+    # frames are always full-depth/full-res.
     pd = getattr(args, "preview_depth", 0)
     if pd and pd < cfg_p.max_depth:
         cfg_p = dataclasses.replace(cfg_p, max_depth=pd)
@@ -315,8 +297,8 @@ def cmd_compare(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="logipathtracer-tpu",
-        description="TPU-native progressive Monte Carlo path tracer")
+        prog="logipathtracer",
+        description="Progressive Monte Carlo path tracer for glTF scenes")
     sub = ap.add_subparsers(dest="command", required=True)
 
     pr = sub.add_parser("render", help="headless render to PNG")

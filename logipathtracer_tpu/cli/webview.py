@@ -3,8 +3,8 @@
 The reference presents each accumulated frame through a Vulkan
 swapchain window every frame (src/RendererCore.cpp:373-412, presented
 from the render loop in src/RendererPT.cpp:550-567) with GLFW key
-input (src/Main.cpp:57-93).  On a headless TPU host there is no
-swapchain; the TPU-native analog is an HTTP viewer: a stdlib
+input (src/Main.cpp:57-93).  On a headless accelerator host there is
+no swapchain; the analog here is an HTTP viewer: a stdlib
 ThreadingHTTPServer serves the latest accumulated frame to a browser
 tab that polls it at display rate, and feeds key events back into the
 camera (WASD/QE translate, IJKL/UO rotate — the reference's bindings;
@@ -16,9 +16,8 @@ Interactive rate at 1080p comes from two decoupled mechanisms
 rate, src/Main.cpp:57-93 + src/RendererPT.cpp:575-581):
 
   * present is a raw-RGBA blit (/frame.raw -> canvas drawImage, ~8 MB
-    over localhost, no encode cost) — PNG encoding a 1080p frame cost
-    0.4-1.6 s per present (renders/interactive_1080p_report.json,
-    round 4) and is now on-demand only (/frame.png, screenshot path);
+    over localhost, no encode cost); PNG encoding is on-demand only
+    (/frame.png, screenshot path);
   * while the camera is moving, frames render on a reduced-resolution
     PREVIEW renderer (default 1/4 scale = 16x fewer rays) and the
     browser upscales; the first still frame switches back to full-res
@@ -51,7 +50,7 @@ KEYMAP_R = {"i": (0, _TURN), "k": (0, -_TURN), "j": (1, _TURN),
             "l": (1, -_TURN), "u": (2, _TURN), "o": (2, -_TURN)}
 
 _PAGE = """<!doctype html>
-<html><head><title>logipathtracer-tpu</title><style>
+<html><head><title>logipathtracer</title><style>
 body { background: #111; color: #ccc; font: 13px monospace;
        display: flex; flex-direction: column; align-items: center; }
 canvas { image-rendering: pixelated; margin-top: 12px;
@@ -328,7 +327,7 @@ def serve(args, build) -> int:
             fetches + device-side RGBA quantization); returns the
             device frame handle + its renderer.  The loop fetches it
             AFTER dispatching the next frame, overlapping frame N+1's
-            compute with frame N's relay transfer."""
+            compute with frame N's device-to-host transfer."""
             if _apply_keys(state, renderers) > 0:
                 nonlocal last_key_t
                 last_key_t = time.monotonic()

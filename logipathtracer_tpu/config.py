@@ -62,11 +62,10 @@ class RenderConfig:
                                   # neighborhood as ONE 4-col u32 atlas
                                   # row (scene compile) so a tap is one
                                   # wide row gather instead of four
-                                  # narrow ones (gathers price per ROW
-                                  # per OP; shade_gather_probe).  Auto-
-                                  # disabled for MIRROR wraps, f32
-                                  # atlases, and atlases > 16M texels
-                                  # (quad = 16 B/texel of HBM).
+                                  # narrow ones.  Auto-disabled for
+                                  # MIRROR wraps, f32 atlases, and
+                                  # atlases > 16M texels (quad = 16
+                                  # B/texel of device memory).
                                   # Sampler output is bit-identical
                                   # (tests/test_textures.py); inside a
                                   # jit graph XLA forms FMAs
@@ -81,112 +80,28 @@ class RenderConfig:
                                   # matches lsg::bvh::SplitBVHBuilder,
                                   # src/PTSceneConverter.cpp:97-98);
                                   # numpy fallback has no splits
-    cluster_size: int = 0         # triangles per sweep cluster (lane
-                                  # dim).  0 = auto: 256 for resident-
-                                  # class scenes (won the on-chip
-                                  # autotune), 512 for HBM-streamed
-                                  # scenes (the stream kernels'
-                                  # per-fired-cluster machinery is
-                                  # launch-bound at ~17 passing lanes;
-                                  # 512 measured +30% bounce intersect
-                                  # on the outside-class scene)
 
     # Execution.
     renderer: str = "auto"        # auto | megakernel | wavefront
-                                  # (auto: wavefront on TPU, megakernel
-                                  #  elsewhere)
+                                  # (auto: the lockstep megakernel)
     pool_size: int = 1 << 20      # wavefront ray-pool lanes
-    intersect: str = "auto"       # auto | compact (Pallas, VMEM-resident
-                                  # per-cluster ray compaction) | sweep
-                                  # (Pallas, VMEM-resident tile sweep) |
-                                  # stream (Pallas, HBM-streamed clusters)
-                                  # | sweep_jnp | sweep_interpret |
-                                  # compact_interpret | stream_interpret
-                                  # | bvh (while-loop walk).  auto:
-                                  # compact on TPU, stream when the
-                                  # scene exceeds the VMEM budget, bvh
-                                  # elsewhere.
-    sweep_tile: int = 1024        # rays per Pallas sweep tile
-    compact_tile: int = 4096      # rays per compaction-sweep tile
-                                  # (bigger tiles densify the per-
-                                  # cluster ray buckets; 4096 measured
-                                  # best round 3, scripts/compact_probe)
-    compact_cap: int = 128        # compacted MT block width (rays per
-                                  # Moller-Trumbore pass of one fired
-                                  # cluster)
-    compact_worklist: bool = True  # resident compact sweep visits only
-                                  # per-tile fired clusters (XLA world-
-                                  # AABB prepass, scalar-prefetched
-                                  # lists) instead of all clusters with
-                                  # an in-kernel skip; parked/retired
-                                  # tiles cost zero cluster steps
-    stream_tile: int = 4096       # rays per streamed-sweep tile (bigger
-                                  # tiles amortize the per-tile HBM
-                                  # re-stream of the cluster data;
-                                  # object-count independent since
-                                  # round 3's on-demand local rays)
-    stream_chunk: int = 16        # clusters per streamed HBM block
-    stream_cap: int = 32          # compacted MT block width for the
-                                  # STREAMED sweeps: big scenes fire
-                                  # many near-empty clusters (measured
-                                  # mean ~17 passing lanes/cluster on
-                                  # the outside pool), so a narrow
-                                  # block beats compact_cap=128 there
-    flush_bins: bool = True       # TPU wavefront flush uses the dense
-                                  # bin-matmul kernel (ops/pallas/
-                                  # flush.py) instead of XLA scatter
-    stream_worklist: bool = True  # TPU stream mode uses the worklist-
-                                  # driven kernel (grid over ray tiles
-                                  # only; per-tile fired-chunk lists
-                                  # with dynamic trip counts + manual
-                                  # double-buffered chunk DMAs) instead
-                                  # of the (tiles x chunks) grid
-    stream_granularity: str = "cluster"
-                                  # worklist cull granularity:
-                                  # "cluster" = per-tile fired-CLUSTER
-                                  # lists from the interval frustum
-                                  # mask, one 32 KB block DMA per
-                                  # visit (ops/pallas/stream_cluster);
-                                  # "chunk" = 16-cluster chunk lists
-                                  # (compact_intersect worklist).
-                                  # Hit-identical up to cross-cluster
-                                  # near-ties (sweep order); cluster
-                                  # measured >= chunk everywhere on
-                                  # the outside dumps, +15% primaries
-                                  # (queue 19, scripts/
-                                  # cluster_wl_probe.py)
-    stream_compact: bool = True   # streamed sweep uses the ray-
-                                  # compaction MT update (compact_cap)
-    shade: str = "auto"           # auto | pallas | shade_interpret | jnp
-                                  # (auto: fused Pallas shading kernel on
-                                  #  TPU for untextured non-NEE Heitz
-                                  #  configs, jnp elsewhere)
-    shade_tile: int = 2048        # rays per Pallas shade tile
-    sort_rays: bool = True        # octant+Morton sort before each
-                                  # intersect (coherence for the sweep)
+    intersect: str = "auto"       # auto | bvh | cuda.  bvh: the
+                                  # lax.while_loop BVH walk (the CPU
+                                  # path and the plain reference);
+                                  # cuda: the per-ray stack walk
+                                  # compiled from native/bvh_traverse.cu
+                                  # (CUDA devices only; an error
+                                  # elsewhere); auto: cuda when the
+                                  # program is compiled for a CUDA
+                                  # device, bvh otherwise
+                                  # (ops/traverse.py select_traversal).
+    sort_rays: bool = True        # wavefront: octant+Morton sort of the
+                                  # pool before each intersect
     sort_variadic: bool = True    # wavefront sort carries the state
                                   # columns as lax.sort payload
                                   # operands (one variadic sort) vs
-                                  # sort_key_val + one wide row gather
-                                  # (round-2 form).  Measured EQUAL on
-                                  # v5e (XLA lowers payload sorts to
-                                  # key-sort + per-operand gathers);
-                                  # kept for the simpler graph.  Same
-                                  # stable permutation either way.
-    pool_cm: bool = False         # component-major wavefront pool:
-                                  # ray-state vectors live as [3, P]
-                                  # rows ([2, P] seeds) instead of
-                                  # [P, 3] columns, so the shade-kernel
-                                  # row build, the rays8 intersect
-                                  # pack, and the sort stack-backs are
-                                  # row concats instead of transposes
-                                  # (the [P, 3] relayout tax measured
-                                  # in scripts/layout_probe.py).
-                                  # Arithmetic is unchanged — images
-                                  # are bit-identical either way
-                                  # (tests/test_wavefront.py).
-                                  # Requires sort_variadic (the packed
-                                  # sort stays the [P, 3] form).
+                                  # sort_key_val + one wide row gather.
+                                  # Same stable permutation either way.
     pool_carryover: bool = True   # progressive wavefront keeps the ray
                                   # pool alive ACROSS step() chunks:
                                   # each chunk stops as soon as its

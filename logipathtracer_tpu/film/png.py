@@ -1,7 +1,7 @@
 """Minimal dependency-free PNG encode/decode (numpy + zlib).
 
 Replaces the reference's display path outputs: the reference presents
-via a Vulkan swapchain (src/RendererCore.cpp:401-402); headless TPU
+via a Vulkan swapchain (src/RendererCore.cpp:401-402); headless
 rendering instead writes the tonemapped frame to disk.
 """
 

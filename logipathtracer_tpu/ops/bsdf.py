@@ -4,8 +4,8 @@ Reimplements shaders/heitz/BSDF.glsl (Heitz 2016 "Multiple-Scattering
 Microfacet BSDFs with the Smith Model": stochastic random walks on the
 microsurface, sampled with the GGX visible-normal distribution of
 Heitz 2018 JCGT) and shaders/basic/BSDF.glsl as vectorized fixed-trip
-masked loops — the TPU restructuring of the reference's variable-length
-while loops.
+masked loops — a lockstep restructuring of the reference's
+variable-length while loops.
 
 The three walks (diffuse / conductor / dielectric,
 heitz/BSDF.glsl:108-275) are FUSED into one ``heitz_max_order``-iteration

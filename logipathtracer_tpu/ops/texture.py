@@ -2,7 +2,7 @@
 
 The reference binds up to 512 separate combined image samplers
 (shaders/path_tracing.comp:105) and lets fixed-function hardware do
-bilinear filtering.  TPU has no samplers: all images live in one padded
+bilinear filtering.  Here all images live in one padded
 atlas (scene/compile.py:_pack_textures) and filtering is four gathers +
 a lerp.  No mipmapping — the reference samples at implicit LOD 0 from a
 compute shader, so this matches.
@@ -54,10 +54,7 @@ def _bilinear(atlas, entry, uv, quad=None):
     ``quad`` ([AH, AW, 4] u32, scene/compile.py:_build_quad_atlas):
     each texel's row carries its full 2x2 bilinear neighborhood with
     the texture's OWN wrap already applied at pack time, so a tap is
-    ONE 4-col row gather instead of four 1-col gathers.  Narrow
-    gathers pay a ~5-8 ns/row pipeline floor PER GATHER OP while wide
-    rows ride free (measured, scripts/shade_gather_probe.py) — this is
-    ~3x fewer gather ops on the textured-shade wall.  Exact for
+    ONE 4-col row gather instead of four 1-col gathers.  Exact for
     REPEAT/CLAMP wraps (MIRROR reverses direction under reflection,
     which a per-texel neighbor cannot encode — such scenes get
     quad=None at compile).  CLAMP needs one index/weight remap to stay

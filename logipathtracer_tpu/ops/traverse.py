@@ -1,19 +1,27 @@
-"""Two-level BVH traversal, restructured for a vector machine.
+"""Two-level BVH traversal: the lockstep XLA walk, and the choice
+between it and the CUDA kernel.
 
 The reference walks an object BVH whose leaves recursively walk
 per-mesh BVHs with the ray transformed to object space
 (shaders/path_tracing.comp:130-209, explicit per-thread stacks).  Here
-both levels are fused into ONE node array (scene/types.py) so a single
-vectorized stack walk serves every ray in lockstep:
+both levels are fused into ONE node array (scene/types.py), and two
+walks read it:
 
-  * one [R, S] stack of global node ids (S = scene.max_stack, a static
-    bound computed from the tree depth at compile time — the analog of
-    INTERSECTION_STACK_SIZE 20),
-  * each node carries the object whose local space its AABB lives in;
-    the lane's local ray is produced by gathering that object's
-    inverse world matrix (identity row for world-space nodes),
-  * leaves hold at most ``leaf_size`` triangles (builder-enforced), so
-    the triangle test is a statically unrolled masked loop.
+  * ``intersect_scene`` — a ``lax.while_loop`` that carries every ray
+    in lockstep with an [R, S] stack of global node ids (S =
+    scene.max_stack, a static bound computed from the tree depth at
+    compile time — the analog of INTERSECTION_STACK_SIZE 20).  Each
+    node carries the object whose local space its AABB lives in; the
+    lane's local ray comes from gathering that object's inverse world
+    matrix (identity row for world-space nodes).  Leaves hold at most
+    ``leaf_width`` triangles, so the triangle test is a statically
+    unrolled masked loop.  It runs everywhere and is the plain
+    reference the kernel is tested against.
+  * ``ops/traverse_cuda.py`` — one CUDA thread per ray with a private
+    stack over the same arrays, in the same visiting order with the
+    same arithmetic.
+
+``select_traversal`` is the one place that chooses between them.
 
 Traversal order differs from the reference (order never affects the
 min-t result; ties broken by strict < are measure-zero).  AABB tests
@@ -58,10 +66,9 @@ def intersect_scene(scene, origin, direction, eps: float = 1e-4,
     Returns (t [R] f32 — INF on miss, obj [R] i32, tri [R] i32 global
     triangle index; -1 where missed).
 
-    ``any_hit`` (API parity with the sweep backends): callers only need
-    the occlusion predicate t < t_max; this walk ignores the flag (its
-    closest-hit answer yields the identical predicate), the compaction
-    sweeps use it to park blocked lanes early.
+    ``any_hit``: callers only need the occlusion predicate t < t_max.
+    This walk ignores the flag (its closest-hit answer yields the
+    identical predicate); the CUDA kernel stops at the first blocker.
     """
     r = origin.shape[0]
     s = scene.max_stack
@@ -148,125 +155,46 @@ def _padded_inverses(scene):
     return jnp.concatenate([ident, inv], axis=0)
 
 
-def _pack_rays8(origin, direction, tile: int, t_max, cm: bool):
-    """Tile-padded [8, Rp] component-major ray block.  ``cm``: the rays
-    already arrive as [3, R] rows (cfg.pool_cm) — the pack is then two
-    row copies instead of two transposes."""
-    r = origin.shape[1] if cm else origin.shape[0]
-    rp = ((r + tile - 1) // tile) * tile
-    rays8 = jnp.zeros((8, rp), jnp.float32)
-    rays8 = rays8.at[5, :].set(1.0)  # benign padding direction
-    rays8 = rays8.at[0:3, :r].set(origin if cm else origin.T)
-    rays8 = rays8.at[3:6, :r].set(direction if cm else direction.T)
-    if t_max is not None:
-        rays8 = rays8.at[6, :].set(INF)
-        rays8 = rays8.at[6, :r].set(t_max)
-    return rays8, r
+TRAVERSALS = ("auto", "bvh", "cuda")
 
 
-def intersect_scene_sweep(scene, origin, direction, eps: float = 1e-4,
-                          tile: int = 1024, backend: str = "pallas",
-                          t_max=None, cap: int = 128,
-                          worklist: bool = False, cm: bool = False,
-                          any_hit: bool = False):
-    """Closest hit via the gather-free cluster sweep
-    (ops/pallas/cluster_intersect.py) or, with backend="compact", the
-    per-cluster ray-compaction sweep (ops/pallas/compact_intersect.py;
-    ``cap`` = compacted MT block width).  Same contract as
-    intersect_scene: returns (t, obj, tri)."""
-    from logipathtracer_tpu.ops.pallas.cluster_intersect import (
-        cluster_intersect_jnp, cluster_intersect_pallas)
+def select_traversal(mode: str):
+    """The traversal for ``RenderConfig.intersect``: an
+    ``intersect_scene``-compatible function.
 
-    rays8, r = _pack_rays8(origin, direction, tile, t_max, cm)
-    inv_rows = scene.obj_world_inv[:, :3, :4].reshape(scene.num_objects, 12)
-    if backend == "jnp":
-        t, tri, obj = cluster_intersect_jnp(
-            scene.cl_meta, inv_rows, scene.cl_aabb, scene.cl_tris, rays8,
-            eps=eps, t_max=None if t_max is None else rays8[6, :])
-    elif backend in ("compact", "compact_interpret"):
-        from logipathtracer_tpu.ops.pallas.compact_intersect import \
-            cluster_intersect_compact
-        t, tri, obj = cluster_intersect_compact(
-            scene.cl_meta, inv_rows, scene.cl_order, scene.cl_aabb,
-            scene.cl_tris, rays8, tile=tile,
-            cap=cap, eps=eps,
-            interpret=(backend == "compact_interpret"),
-            has_tmax=t_max is not None,
-            worklist=worklist,
-            obj_world=scene.obj_world if worklist else None,
-            any_hit=any_hit and t_max is not None)
-    else:
-        t, tri, obj = cluster_intersect_pallas(
-            scene.cl_meta, inv_rows, scene.cl_order, scene.cl_aabb,
-            scene.cl_tris, rays8, tile=tile, eps=eps,
-            interpret=(backend == "interpret"),
-            has_tmax=t_max is not None)
-    return t[:r], obj[:r], tri[:r]
+    ``bvh`` is the XLA walk.  ``cuda`` is the CUDA kernel, and raises
+    when JAX has no CUDA device.  ``auto`` lets
+    ``lax.platform_dependent`` pick at lowering time: the kernel in a
+    program compiled for a CUDA device, the walk in any other.  The
+    kernel never falls back to the walk: on a CUDA machine a kernel
+    library that fails to build or load raises."""
+    if mode == "bvh":
+        return intersect_scene
+    from logipathtracer_tpu.ops import traverse_cuda
+    if mode == "cuda":
+        return traverse_cuda.intersect_scene_cuda
+    if mode == "auto":
+        return _intersect_auto
+    raise ValueError(f"unknown intersect mode {mode!r}; "
+                     f"expected one of {TRAVERSALS}")
 
 
-def intersect_scene_stream(scene, origin, direction, eps: float = 1e-4,
-                           tile: int = 2048, chunk: int = 16,
-                           backend: str = "pallas", t_max=None,
-                           cap: int = 0, cm: bool = False,
-                           any_hit: bool = False):
-    """Closest hit via the HBM-streamed cluster sweep — scenes whose
-    cluster data exceeds the resident kernel's VMEM budget
-    (ops/pallas/cluster_intersect.py::cluster_intersect_stream).  Same
-    contract as intersect_scene."""
-    from logipathtracer_tpu.ops.pallas.cluster_intersect import \
-        cluster_intersect_stream
+def _intersect_auto(scene, origin, direction, eps: float = 1e-4,
+                    t_max=None, any_hit: bool = False):
+    from logipathtracer_tpu.ops import traverse_cuda
+    if traverse_cuda.cuda_available():
+        traverse_cuda.ensure_registered()
 
-    rays8, r = _pack_rays8(origin, direction, tile, t_max, cm)
-    inv_rows = scene.obj_world_inv[:, :3, :4].reshape(scene.num_objects, 12)
-    t, tri, obj = cluster_intersect_stream(
-        scene.cl_meta, inv_rows, scene.cl_aabb, scene.cl_tris,
-        scene.obj_world, rays8, tile=tile, chunk=chunk, eps=eps,
-        interpret=(backend == "interpret"), has_tmax=t_max is not None,
-        cap=cap, any_hit=any_hit and t_max is not None)
-    return t[:r], obj[:r], tri[:r]
+    def kernel(o, d):
+        return traverse_cuda.call_kernel(scene, o, d, eps=eps, t_max=t_max,
+                                         any_hit=any_hit)
 
+    def walk(o, d):
+        return intersect_scene(scene, o, d, eps=eps, t_max=t_max,
+                               any_hit=any_hit)
 
-def intersect_scene_worklist(scene, origin, direction, eps: float = 1e-4,
-                             tile: int = 4096, chunk: int = 16,
-                             t_max=None, cap: int = 128,
-                             cm: bool = False, any_hit: bool = False):
-    """Closest hit via the worklist-driven streamed compaction sweep
-    (compact_intersect.py::cluster_intersect_worklist) — the TPU
-    production path for beyond-VMEM scenes.  Same contract as
-    intersect_scene_stream."""
-    from logipathtracer_tpu.ops.pallas.compact_intersect import \
-        cluster_intersect_worklist
-
-    rays8, r = _pack_rays8(origin, direction, tile, t_max, cm)
-    inv_rows = scene.obj_world_inv[:, :3, :4].reshape(scene.num_objects, 12)
-    t, tri, obj = cluster_intersect_worklist(
-        scene.cl_meta, inv_rows, scene.cl_aabb, scene.cl_tris,
-        scene.obj_world, rays8, tile=tile, chunk=chunk, eps=eps,
-        has_tmax=t_max is not None, cap=cap,
-        any_hit=any_hit and t_max is not None)
-    return t[:r], obj[:r], tri[:r]
-
-
-def intersect_scene_cluster_wl(scene, origin, direction, eps: float = 1e-4,
-                               tile: int = 4096, t_max=None, cap: int = 32,
-                               cm: bool = False, any_hit: bool = False,
-                               nbuf: int = 4, chunk_gate: int = 0):
-    """Closest hit via the cluster-granular worklist stream sweep
-    (ops/pallas/stream_cluster.py) — the TPU production path for
-    beyond-VMEM scenes (cfg.stream_granularity="cluster").  Same
-    contract as intersect_scene_stream; TPU-only (manual-DMA loop)."""
-    from logipathtracer_tpu.ops.pallas.stream_cluster import \
-        cluster_intersect_stream_cl
-
-    rays8, r = _pack_rays8(origin, direction, tile, t_max, cm)
-    inv_rows = scene.obj_world_inv[:, :3, :4].reshape(scene.num_objects, 12)
-    t, tri, obj = cluster_intersect_stream_cl(
-        scene.cl_meta, inv_rows, scene.cl_aabb, scene.cl_tris,
-        scene.obj_world, rays8, tile=tile, eps=eps,
-        has_tmax=t_max is not None, cap=cap,
-        any_hit=any_hit and t_max is not None, nbuf=nbuf,
-        chunk_gate=chunk_gate)
-    return t[:r], obj[:r], tri[:r]
+    return jax.lax.platform_dependent(origin, direction, cuda=kernel,
+                                      default=walk)
 
 
 def intersect_bruteforce(scene, origin, direction, eps: float = 1e-4,

@@ -1,7 +1,7 @@
 """Multi-chip parallel rendering over a jax.sharding.Mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2.4: no multi-device
-code of any kind); distribution is introduced fresh here, the TPU way:
+code of any kind); distribution is introduced fresh here:
 
   * 2-D device mesh ``(samples, tiles)``:
       - the ``samples`` axis is sample-parallel (each slice renders the
@@ -10,10 +10,10 @@ code of any kind); distribution is introduced fresh here, the TPU way:
         during rendering, one reduction when the image is fetched);
       - the ``tiles`` axis is tile-parallel (disjoint row slabs of the
         frame; zero communication, concatenation at fetch).
-  * the scene SoA is replicated (cornell ~1.6 MB ≪ HBM per chip);
-  * collectives: a single psum over ``samples`` inside the sharded
-    image-fetch, riding ICI.  No custom comm layer is warranted for an
-    embarrassingly parallel renderer (SURVEY.md §5.8).
+  * the scene SoA is replicated (cornell ~1.6 MB ≪ device memory);
+  * collectives: a single sum over ``samples`` inside the image fetch,
+    which XLA lowers to a cross-device reduce.  No custom comm layer is
+    warranted for an embarrassingly parallel renderer (SURVEY.md §5.8).
 
 Pixel RNG streams are keyed by absolute pixel coordinates and the
 per-sample ubo seed, so every (sample, tile) shard computes exactly the
@@ -180,14 +180,12 @@ def _build_step(mesh: Mesh, cfg: RenderConfig, scene):
     accum[S,H,W,3], reset) -> (accum', rays).
 
     Each (sample, tile) shard renders its row slab — through the pooled
-    wavefront when the config selects it (the production TPU renderer;
-    render_wavefront's y0/rows slab support keys RNG streams on absolute
-    pixel coordinates), else through the lockstep megakernel."""
+    wavefront when the config selects it (render_wavefront's y0/rows
+    slab support keys RNG streams on absolute pixel coordinates), else
+    through the lockstep megakernel."""
     t = mesh.shape["tiles"]
     rows_local = cfg.render_height // t
-    use_wavefront = (cfg.renderer == "wavefront"
-                     or (cfg.renderer == "auto"
-                         and jax.default_backend() == "tpu"))
+    use_wavefront = cfg.renderer == "wavefront"
 
     scene_specs = jax.tree.map(lambda _: P(), scene)
 

@@ -4,7 +4,7 @@ The vectorized re-expression of shaders/path_tracing.comp main() +
 traceRay() (:211-352): every pixel's full path is carried in lockstep
 through a static ``max_depth`` bounce loop with lane masks standing in
 for the reference's branches.  This is both the production render step
-and the CI oracle (it runs identically on CPU and TPU).
+and the CI oracle (it runs identically on CPU and GPU).
 
 Faithfulness ledger items implemented here (SURVEY.md §7):
   * miss OVERWRITES accColor with mask*0.2 (path_tracing.comp:220-223 —
@@ -36,176 +36,16 @@ from logipathtracer_tpu.ops.intersect import (INF, barycentric,
                                               transform_dir, transform_point)
 from logipathtracer_tpu.ops.rng import get_rand, seed_from_pixel
 from logipathtracer_tpu.ops.texture import sample_atlas
-from logipathtracer_tpu.ops.traverse import (intersect_scene,
-                                             intersect_scene_sweep)
+from logipathtracer_tpu.ops.traverse import select_traversal
 
 
-# The sweep kernel holds all cluster triangles in VMEM (~16 MB/core);
-# scenes beyond this budget stream cluster chunks from HBM instead
-# (intersect mode "stream").
-SWEEP_VMEM_BUDGET = 10 * 2 ** 20
-SWEEP_SMEM_BUDGET = 512 * 2 ** 10  # scalar-memory tables (meta/inv/order)
-
-
-def _pad128(n: int) -> int:
-    """2-D SMEM arrays pad their minor dim to 128-element multiples."""
-    return -(-n // 128) * 128
-
-
-def _stream_fits(cfg: RenderConfig, scene) -> bool:
-    """VMEM/SMEM feasibility of the streamed sweep for this scene.
-
-    Round 3: local rays are computed on demand inside the kernel (no
-    [O, 9, tile] scratch), so the tile size no longer scales with the
-    object count; the VMEM budget is the double-buffered tri chunks +
-    ray/best blocks + the compaction's one-hot/pipeline tiles."""
-    c, _, lanes = scene.cl_tris.shape
-    o = scene.num_objects
-    chunk = cfg.stream_chunk
-    tile = cfg.stream_tile
-    cp = -(-c // chunk) * chunk
-    vmem = (2 * chunk * 16 * lanes * 4     # double-buffered tri chunks
-            + 8 * tile * 4                 # ray block
-            + 6 * tile * 4                 # best t/tri/obj (+outputs)
-            + 12 * 128 * tile * 4 // 128   # compaction one-hot + splits
-            + 8 * 128 * cfg.stream_cap * 4)
-    # SMEM: meta [2, Cp] + aabb [8, Cp] + chunk_aabb [6, NC] + inv [O, 12]
-    # + chunk order [8, NC] + tile octants/live (2 per tile, small).
-    smem = (10 * _pad128(cp) + 14 * _pad128(cp // chunk) + o * 128) * 4
-    return vmem <= SWEEP_VMEM_BUDGET and smem <= SWEEP_SMEM_BUDGET
-
-
-def resident_sweep_fits(c: int, lanes: int, num_objects: int,
-                        cfg: RenderConfig, mode: str = "compact") -> bool:
-    """VMEM/SMEM feasibility of the RESIDENT sweep kernels for a
-    clustered scene of ``c`` clusters x ``lanes`` triangles.
-
-    cl_tris pads 9 component rows to 16 sublanes in VMEM, plus the
-    kernel's own scratch: per-object local rays [O, 9->16, tile], the
-    [8, tile] ray block, and 3 [tile/128, 128] best-hit buffers.  The
-    compact kernel adds in-register one-hot blocks bounded by a few
-    [128, cap] tiles (counted as 8 such blocks).  Also the auto
-    cluster-size predicate (scene/compile.py): scenes that fail it
-    stream clusters from HBM, where bigger clusters amortize the
-    launch-bound per-fired-cluster machinery."""
-    tile = cfg.compact_tile if mode == "compact" else cfg.sweep_tile
-    # Triangle data: 9 component rows padded to 16 sublanes.
-    vmem = (c * 16 * lanes * 4         # triangles
-            + num_objects * 16 * tile * 4  # local-ray scratch
-            + 8 * tile * 4             # ray block
-            + 6 * tile * 4)            # best t/tri/obj (+outputs)
-    if mode == "compact":
-        vmem += 8 * 128 * cfg.compact_cap * 4
-    # SMEM tables (minor-dim 128 padding): meta [2,C], order [8,C],
-    # aabb [8,C], inv [O,12].
-    smem = (18 * _pad128(c) + num_objects * 128) * 4
-    return vmem <= SWEEP_VMEM_BUDGET and smem <= SWEEP_SMEM_BUDGET
-
-
-def resolve_intersect_mode(cfg: RenderConfig, scene=None) -> str:
-    mode = cfg.intersect
-    if mode == "auto":
-        mode = "compact" if jax.default_backend() == "tpu" else "bvh"
-    if mode in ("sweep", "compact") and scene is not None:
-        c, _, lanes = scene.cl_tris.shape
-        if not resident_sweep_fits(c, lanes, scene.num_objects, cfg,
-                                   mode=mode):
-            mode = "stream" if _stream_fits(cfg, scene) else "bvh"
-    return mode
-
-
-def pick_intersect(cfg: RenderConfig, scene=None, cm: bool = False):
-    """Select the intersection backend (static per config/scene shapes).
-
-    'auto' uses the Pallas cluster sweep on TPU and the while-loop BVH
-    walk elsewhere (the CPU 'lavapipe analog', SURVEY.md §4).
-
-    ``cm``: the returned closure takes component-major [3, R] rays
-    (cfg.pool_cm pool state) instead of [R, 3].
-
-    Every closure takes ``any_hit`` (NEE shadow occlusion queries, used
-    with t_max): the compaction sweeps park blocked lanes at the first
-    accepted hit; other backends answer closest-hit, which yields the
-    identical t < t_max predicate."""
-    mode = resolve_intersect_mode(cfg, scene)
-    if mode == "bvh":
-        if cm:
-            return lambda s, o, d, eps, t_max=None, any_hit=False: \
-                intersect_scene(s, o.T, d.T, eps=eps, t_max=t_max,
-                                any_hit=any_hit)
-        return intersect_scene
-    if mode == "sweep":
-        return lambda s, o, d, eps, t_max=None, any_hit=False: \
-            intersect_scene_sweep(
-                s, o, d, eps=eps, tile=cfg.sweep_tile, backend="pallas",
-                t_max=t_max, cm=cm)
-    if mode == "sweep_interpret":
-        return lambda s, o, d, eps, t_max=None, any_hit=False: \
-            intersect_scene_sweep(
-                s, o, d, eps=eps, tile=cfg.sweep_tile,
-                backend="interpret", t_max=t_max, cm=cm)
-    if mode in ("compact", "compact_interpret"):
-        return lambda s, o, d, eps, t_max=None, any_hit=False: \
-            intersect_scene_sweep(
-                s, o, d, eps=eps, tile=cfg.compact_tile, backend=mode,
-                t_max=t_max, cap=cfg.compact_cap,
-                worklist=cfg.compact_worklist, cm=cm, any_hit=any_hit)
-    if mode == "sweep_jnp":
-        return lambda s, o, d, eps, t_max=None, any_hit=False: \
-            intersect_scene_sweep(
-                s, o, d, eps=eps, backend="jnp", t_max=t_max, cm=cm)
-    if mode in ("stream", "stream_interpret"):
-        from logipathtracer_tpu.ops.traverse import intersect_scene_stream
-        backend = "interpret" if mode == "stream_interpret" else "pallas"
-        cap = cfg.stream_cap if cfg.stream_compact else 0
-        if (mode == "stream" and cfg.stream_worklist and cap > 0):
-            # Worklist-driven stream kernels: TPU-only (manual DMA has
-            # no interpret support); the grid-based kernel stays the
-            # interpret/CPU twin and the cap=0 fallback.
-            if cfg.stream_granularity == "cluster":
-                from logipathtracer_tpu.ops.traverse import \
-                    intersect_scene_cluster_wl
-                return lambda s, o, d, eps, t_max=None, any_hit=False: \
-                    intersect_scene_cluster_wl(
-                        s, o, d, eps=eps, tile=cfg.stream_tile,
-                        t_max=t_max, cap=cap, cm=cm, any_hit=any_hit)
-            from logipathtracer_tpu.ops.traverse import \
-                intersect_scene_worklist
-            return lambda s, o, d, eps, t_max=None, any_hit=False: \
-                intersect_scene_worklist(
-                    s, o, d, eps=eps, tile=cfg.stream_tile,
-                    chunk=cfg.stream_chunk, t_max=t_max, cap=cap,
-                    cm=cm, any_hit=any_hit)
-        return lambda s, o, d, eps, t_max=None, any_hit=False: \
-            intersect_scene_stream(
-                s, o, d, eps=eps, tile=cfg.stream_tile,
-                chunk=cfg.stream_chunk,
-                backend=backend, t_max=t_max, cap=cap, cm=cm,
-                any_hit=any_hit)
-    raise ValueError(f"unknown intersect mode {mode!r}")
-
-
-def intersect_tile(cfg: RenderConfig, scene=None) -> int:
-    """Rays per kernel tile of the RESOLVED intersect mode — what pixel
-    blocking and sort-tile coherence should be sized to."""
-    mode = resolve_intersect_mode(cfg, scene)
-    if mode in ("compact", "compact_interpret"):
-        return cfg.compact_tile
-    if mode in ("stream", "stream_interpret"):
-        return cfg.stream_tile
-    return cfg.sweep_tile
-
-
-def ray_sort_key(scene, origin, direction, cm: bool = False):
+def ray_sort_key(scene, origin, direction):
     """Spatial sort key: direction octant (major) + 5-bit-per-axis
     Morton code of the origin within the scene bounds.
 
-    Scattered bounce rays are incoherent; sorting them so a sweep tile
-    sees similar origins/directions restores most of the tile-level
-    culling the cluster kernel relies on (SURVEY.md §5.7: lobe/ray
-    sorting between bounces).  ``cm``: origin/direction are
-    component-major [3, R] rows (cfg.pool_cm) instead of [R, 3]."""
-    cx = (lambda a, i: a[i]) if cm else (lambda a, i: a[:, i])
+    Scattered bounce rays are incoherent; the wavefront sorts its pool
+    by this key so neighbouring lanes trace similar rays (SURVEY.md
+    §5.7: lobe/ray sorting between bounces)."""
     lo = scene.world_aabb[0]
     span = jnp.maximum(scene.world_aabb[1] - lo, 1e-9)
 
@@ -216,287 +56,19 @@ def ray_sort_key(scene, origin, direction, cm: bool = False):
         return out
 
     def quant(i):
-        q = (cx(origin, i) - lo[i]) / span[i] * 31.0
+        q = (origin[:, i] - lo[i]) / span[i] * 31.0
         return spread3(jnp.clip(q.astype(jnp.int32), 0, 31))
 
     morton = quant(0) | (quant(1) << 1) | (quant(2) << 2)
-    octant = ((cx(direction, 0) > 0).astype(jnp.int32) * 4
-              + (cx(direction, 1) > 0).astype(jnp.int32) * 2
-              + (cx(direction, 2) > 0).astype(jnp.int32))
+    octant = ((direction[:, 0] > 0).astype(jnp.int32) * 4
+              + (direction[:, 1] > 0).astype(jnp.int32) * 2
+              + (direction[:, 2] > 0).astype(jnp.int32))
     return (octant << 15) | morton
-
-
-def sorted_intersect(isect, scene, origin, direction, eps):
-    """Permute rays into sort-key order for the intersect call and
-    un-permute the hit results (state stays in pixel order)."""
-    r = origin.shape[0]
-    key = ray_sort_key(scene, origin, direction)
-    _, perm = jax.lax.sort_key_val(key, jnp.arange(r, dtype=jnp.int32))
-    # One wide gather for both ray vectors.
-    packed = jnp.concatenate([origin, direction], axis=1)  # [R, 6]
-    packed = jnp.take(packed, perm, axis=0)
-    t, obj, tri = isect(scene, packed[:, 0:3], packed[:, 3:6], eps=eps)
-    inv_perm = jnp.zeros((r,), jnp.int32).at[perm].set(
-        jnp.arange(r, dtype=jnp.int32))
-    t = jnp.take(t, inv_perm, axis=0)
-    obj = jnp.take(obj, inv_perm, axis=0)
-    tri = jnp.take(tri, inv_perm, axis=0)
-    return t, obj, tri
-
-
-# In-kernel NEE holds the light table in VMEM and one-hot-gathers the
-# picked row per lane; beyond this light count the [L, tile] pick
-# becomes the kernel's dominant cost and the jnp path wins.
-SHADE_NEE_MAX_LIGHTS = 512
-
-# In-kernel shade-table selection (shade.py tri_sel): scenes up to this
-# many triangles keep the whole [T, 64] shade table VMEM-resident in
-# the fused kernel and replace the XLA [R, 64] row gather + row-pack
-# transposes with one exact one-hot matmul per tile.  Beyond it, the
-# [Tp, tile] one-hot build dominates and the gather form wins.
-SHADE_SEL_MAX_TRIS = 512
-
-
-def resolve_shade_mode(cfg: RenderConfig, scene=None) -> str:
-    """Pick the shading backend.  The fused Pallas kernel covers the
-    untextured Heitz configuration — including NEE (in-kernel light
-    sampling + shadow-ray setup, round 3) for scenes with at most
-    SHADE_NEE_MAX_LIGHTS emissive triangles; everything else shades
-    through the jnp oracle path."""
-    mode = cfg.shade
-    if mode == "auto":
-        mode = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if mode in ("pallas", "shade_interpret") and scene is not None:
-        if (not cfg.use_microfacet
-                or (cfg.nee and scene.num_lights > SHADE_NEE_MAX_LIGHTS)):
-            mode = "jnp"
-    return mode
-
-
-def _resolve_tex_prologue(scene, cfg: RenderConfig, origin, direction, t,
-                          safe_obj, oshade, tshade):
-    """Texture taps for the fused shade kernel, in XLA (the gathers the
-    kernel cannot do), mirroring shade_step's jnp sequence exactly:
-    material factors multiply in texture order (base, emissive,
-    metallic-roughness, transmission), the roughness floor applies
-    BEFORE the texture multiply, and the normal map rotates about the
-    PRE-map tangent basis.  Returns (oshade with the material slots
-    overwritten, mapped front-face normal [R, 3], has-normal-map [R])."""
-    world3 = oshade[:, 0:9].reshape(-1, 3, 3)
-    inv34 = oshade[:, 9:21].reshape(-1, 3, 4)
-    o_loc = transform_point(inv34, origin)
-    d_loc = transform_dir(inv34, direction)
-    pos_loc = o_loc + t[:, None] * d_loc
-    v0 = tshade[:, 15:18]
-    v1 = tshade[:, 18:21]
-    v2 = tshade[:, 21:24]
-    bary = barycentric(pos_loc, v0, v1, v2)
-    uv = (bary[:, 0:1] * tshade[:, 9:11]
-          + bary[:, 1:2] * tshade[:, 11:13]
-          + bary[:, 2:3] * tshade[:, 13:15])
-
-    base_color = oshade[:, 21:25]
-    emission = oshade[:, 25:28]
-    mrti = oshade[:, 28:32]
-    metallic = mrti[:, 0]
-    roughness = jnp.maximum(mrti[:, 1], 0.001)
-    transmission = mrti[:, 2]
-
-    tex = jnp.take(scene.obj_tex, safe_obj, axis=0)
-    if scene.mip_levels > 1:
-        from logipathtracer_tpu.ops.texture import sample_atlas_lod
-        scale = jnp.sqrt(jnp.maximum(
-            jnp.sum(world3[:, :, 0] ** 2, axis=-1), 1e-20))
-        density_w = tshade[:, 24] / scale
-
-    def tap(slot):
-        tid = tex[:, slot]
-        if scene.mip_levels > 1:
-            base = jnp.take(scene.tex_mip_base, jnp.maximum(tid, 0),
-                            axis=0)
-            e0 = jnp.take(scene.tex_table, base, axis=0)
-            dim = jnp.maximum(e0[:, 2], e0[:, 3]).astype(jnp.float32)
-            footprint = cfg.mip_spread * t * density_w * dim
-            lod = jnp.log2(jnp.maximum(footprint, 1.0))
-            s = sample_atlas_lod(
-                scene.tex_atlas, scene.tex_table, scene.tex_mip_base,
-                scene.tex_mip_count, tid, uv, lod,
-                nearest_aware=scene.has_nearest, quad=scene.tex_quad)
-        else:
-            s = sample_atlas(scene.tex_atlas, scene.tex_table, tid, uv,
-                             nearest_aware=scene.has_nearest,
-                             quad=scene.tex_quad)
-        return (tid >= 0), s
-
-    # Statically skip slots NO object textures (scene.tex_slots): each
-    # tap is 4+ per-ray gathers ~= 14 ms/Mray of XLA gather machinery
-    # (round-4 box-scene decomposition) — the TPU analog of the
-    # reference's per-feature shader specialization.
-    used = scene.tex_slots
-    if used[0]:
-        has_c, c = tap(0)
-        base_color = jnp.where(has_c[:, None], base_color * c,
-                               base_color)
-    if used[1]:
-        has_e, e = tap(1)
-        emission = jnp.where(has_e[:, None], emission * e[:, :3],
-                             emission)
-    if used[2]:
-        has_mr, mr = tap(2)
-        metallic = jnp.where(has_mr, metallic * mr[:, 2], metallic)
-        roughness = jnp.where(has_mr, roughness * mr[:, 1], roughness)
-    if used[3]:
-        has_t, tt = tap(3)
-        transmission = jnp.where(has_t, transmission * tt[:, 0],
-                                 transmission)
-
-    # Normal map about the pre-map basis (shade_step:412-424).
-    n_loc = (bary[:, 0:1] * tshade[:, 0:3]
-             + bary[:, 1:2] * tshade[:, 3:6]
-             + bary[:, 2:3] * tshade[:, 6:9])
-    n = transform_dir(world3, n_loc)
-    n = n / jnp.sqrt(jnp.maximum(
-        jnp.sum(n * n, axis=-1, keepdims=True), 1e-38))
-    ndotd = jnp.sum(n * direction, axis=-1)
-    ff = jnp.where((ndotd < 0.0)[:, None], n, -n)
-    pick_y = jnp.abs(ff[:, 0]) > 0.1
-    axis = jnp.where(pick_y[:, None], jnp.array([0.0, 1.0, 0.0]),
-                     jnp.array([1.0, 0.0, 0.0]))
-    if used[4]:
-        u = jnp.cross(axis, ff)
-        u = u / jnp.sqrt(jnp.maximum(
-            jnp.sum(u * u, axis=-1, keepdims=True), 1e-38))
-        v = jnp.cross(ff, u)
-        has_n, nmap = tap(4)
-        tn = nmap[:, :3] * 2.0 - 1.0
-        tn = tn / jnp.sqrt(jnp.maximum(
-            jnp.sum(tn * tn, axis=-1, keepdims=True), 1e-38))
-        ff_mapped = tn[:, 0:1] * u + tn[:, 1:2] * v + tn[:, 2:3] * ff
-        ff_mapped = ff_mapped / jnp.sqrt(jnp.maximum(
-            jnp.sum(ff_mapped * ff_mapped, axis=-1, keepdims=True),
-            1e-38))
-    else:
-        has_n = jnp.zeros(ff.shape[0], bool)
-        ff_mapped = ff
-
-    oshade = oshade.at[:, 21:25].set(base_color)
-    oshade = oshade.at[:, 25:28].set(emission)
-    oshade = oshade.at[:, 28].set(metallic)
-    oshade = oshade.at[:, 29].set(roughness)
-    oshade = oshade.at[:, 30].set(transmission)
-    return oshade, ff_mapped, has_n
-
-
-def _shade_step_pallas(scene, cfg: RenderConfig, origin, direction, acc,
-                       mask, alive, seed, bounce, t, obj, tri, prev_pdf,
-                       interpret: bool, isect=None, cm: bool = False):
-    """Pack ray state component-major and run the fused shading kernel
-    (ops/pallas/shade.py).  Same contract as the jnp tail of
-    shade_step.
-
-    ``cm``: the ray-state vectors arrive (and return) component-major
-    ([3, R] / [2, R] rows, cfg.pool_cm) — the kernel's native layout,
-    so the row pack and the result unpack lose their transposes.
-
-    NEE configs (cfg.nee, lights present, isect given): the kernel
-    additionally samples the light, prepares the shadow query, and
-    returns the pending contribution; the shadow rays then go through
-    the SAME intersect backend with t_max (the any-hit analog) and the
-    contribution is added where visible — the only post-kernel work.
-    """
-    from logipathtracer_tpu.ops.pallas import shade as ps
-
-    nee = bool(cfg.nee and scene.num_lights > 0 and isect is not None)
-    r = origin.shape[1] if cm else origin.shape[0]
-    safe_obj = jnp.maximum(obj, 0)
-    safe_tri = jnp.maximum(tri, 0)
-    bounce_v = jnp.broadcast_to(jnp.asarray(bounce, jnp.int32), (r,))
-
-    bf = lambda x: jax.lax.bitcast_convert_type(x, jnp.float32)
-    rowsof = (lambda a: a) if cm else (lambda a: a.T)
-    # Small untextured scenes select the shade-table rows INSIDE the
-    # kernel (shade.py tri_sel): no [R, 64] gather, no table
-    # transposes — the triangle id rides as one row.
-    tri_sel = (not scene.has_textures
-               and scene.tri_shade.shape[0] <= SHADE_SEL_MAX_TRIS)
-    state_rows = [
-        rowsof(origin), rowsof(direction), rowsof(mask), rowsof(acc),
-        t[None, :],
-        rowsof(bf(seed.astype(jnp.int32))),
-        bf(alive.astype(jnp.int32))[None, :],
-        prev_pdf[None, :],
-        bf(bounce_v)[None, :],
-    ]
-    tri_block = None
-    if tri_sel:
-        tri_block = ps.build_tri_block(scene.tri_shade)
-        rows = jnp.concatenate(
-            state_rows + [bf(safe_tri)[None, :]], axis=0)  # [IN_K_SEL, R]
-    else:
-        # ONE [T, 64] row gather covers both shade tables (scene/
-        # types.py tri_shade layout: cols 32:64 are the owning object's
-        # obj_shade row; miss lanes read an arbitrary-but-valid row
-        # either way and are masked in the kernel).
-        ts64 = jnp.take(scene.tri_shade, safe_tri, axis=0)    # [R, 64]
-        tshade = ts64[:, 0:32]
-        oshade = ts64[:, 32:64]
-        extra = []
-        if scene.has_textures:
-            # The texture prologue's gathers/interpolation are [R, ...]
-            # shaped; feed it row-major views (textured scenes only).
-            oshade, ff_mapped, has_n = _resolve_tex_prologue(
-                scene, cfg, origin.T if cm else origin,
-                direction.T if cm else direction, t, safe_obj, oshade,
-                tshade)
-            extra = [ff_mapped.T, bf(has_n.astype(jnp.int32))[None, :]]
-        rows = jnp.concatenate(
-            state_rows + [tshade.T, oshade.T] + extra,
-            axis=0)  # [IN_K or IN_K_TEX, R]
-
-    tile = min(cfg.shade_tile, r)
-    rp = ((r + tile - 1) // tile) * tile
-    if rp != r:
-        pad = jnp.zeros((rows.shape[0], rp - r), rows.dtype)
-        rows = jnp.concatenate([rows, pad], axis=1)
-
-    env = float(cfg.env_color)
-    cfg_tuple = (env, env, env, float(cfg.eps), float(cfg.rr_threshold),
-                 int(cfg.rr_bounces), int(cfg.heitz_max_order),
-                 bool(cfg.nee_mis), float(scene.total_light_area))
-    light_block = (ps.build_light_block(scene.light_tris, scene.light_cdf)
-                   if nee else None)
-    out = ps.shade_pallas(rows, cfg_tuple,
-                          rand_kind="parity" if cfg.parity_rng
-                          else "threefry",
-                          tile=tile, interpret=interpret, nee=nee,
-                          light_block=light_block,
-                          tri_block=tri_block)[:, :r]
-
-    bi = lambda x: jax.lax.bitcast_convert_type(x, jnp.int32)
-    unrows = (lambda a: a) if cm else (lambda a: a.T)
-    origin = unrows(out[ps.O_OX:ps.O_OZ + 1])
-    direction = unrows(out[ps.O_DX:ps.O_DZ + 1])
-    mask = unrows(out[ps.O_MR:ps.O_MB + 1])
-    acc = unrows(out[ps.O_AR:ps.O_AB + 1])
-    seed = unrows(bi(out[ps.O_S0:ps.O_S1 + 1]).astype(jnp.uint32))
-    alive = bi(out[ps.O_ALIVE]) != 0
-    prev_pdf = out[ps.O_SKIP]
-    if nee:
-        shadow_o = unrows(out[ps.O_SOX:ps.O_SOZ + 1])
-        shadow_d = unrows(out[ps.O_SDX:ps.O_SDZ + 1])
-        t_lim = out[ps.O_TLIM]
-        contrib = out[ps.O_CR:ps.O_CB + 1]
-        t_s, _, _ = isect(scene, shadow_o, shadow_d, eps=cfg.eps,
-                          t_max=t_lim, any_hit=True)
-        visible = t_s >= t_lim
-        acc = acc + (jnp.where(visible[None, :], contrib, 0.0) if cm
-                     else jnp.where(visible[:, None], contrib.T, 0.0))
-    return origin, direction, acc, mask, alive, seed, prev_pdf
 
 
 def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
                alive, seed, bounce, t, obj, tri, prev_pdf=None,
-               isect=None, rand=None, cm: bool = False):
+               isect=None, rand=None):
     """One shading iteration of the traceRay loop
     (path_tracing.comp:219-323), given the intersection results.
 
@@ -517,27 +89,6 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
         rand = get_rand(cfg.parity_rng)
     if prev_pdf is None:
         prev_pdf = jnp.zeros(alive.shape, jnp.float32)
-
-    shade_mode = resolve_shade_mode(cfg, scene)
-    if shade_mode in ("pallas", "shade_interpret"):
-        return _shade_step_pallas(
-            scene, cfg, origin, direction, acc, mask, alive, seed,
-            bounce, t, obj, tri, prev_pdf,
-            interpret=(shade_mode == "shade_interpret"), isect=isect,
-            cm=cm)
-    if cm:
-        # The jnp shading tail is [R, 3]-shaped throughout; transpose at
-        # the boundary (configs that shade here — CPU runs, >512-light
-        # NEE — are not the hot path the cm pool exists for).  The
-        # shadow-ray isect closure stays cm, so wrap it to match.
-        cm_isect = isect
-        if isect is not None:
-            isect = lambda s, o, d, **kw: cm_isect(s, o.T, d.T, **kw)
-        o2, d2, a2, m2, al2, s2, pp2 = shade_step(
-            scene, cfg, origin.T, direction.T, acc.T, mask.T, alive,
-            seed.T, bounce, t, obj, tri, prev_pdf=prev_pdf, isect=isect,
-            rand=rand)
-        return o2.T, d2.T, a2.T, m2.T, al2, s2.T, pp2
 
     miss = alive & (t >= INF)
     # Reference assigns (not adds) mask*env on miss (:220-223).
@@ -613,8 +164,7 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
                                  uv, nearest_aware=scene.has_nearest,
                                  quad=scene.tex_quad)
             return (tid >= 0), s
-        # Statically skip slots NO object textures (scene.tex_slots;
-        # mirrors _resolve_tex_prologue's specialization).
+        # Statically skip slots NO object textures (scene.tex_slots).
         used = scene.tex_slots
         if used[0]:
             has_c, c = tap(0)
@@ -729,11 +279,8 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
         pos_hit = origin + t[:, None] * direction
         # Park non-NEE lanes before ANY of the shadow-query math: missed
         # or dead lanes carry t = INF, so pos_hit is ~±3.4e38 (and wl
-        # becomes NaN) — finite-but-huge/NaN operands poison the
-        # compaction kernel's one-hot gathers (0 * NaN = NaN sums into
-        # every compacted column; compact_intersect.py BIG note).  The
-        # 1e30 park makes every slab test fail cleanly, same as the
-        # main-path dead-lane parking.
+        # becomes NaN).  The 1e30 park makes every slab test fail
+        # cleanly, same as the main-path dead-lane parking.
         pos_hit = jnp.where(nee_mask[:, None], pos_hit, 1e30)
         ldir = lp - jnp.where(nee_mask[:, None], pos_hit, 0.0)
         dist2 = jnp.maximum(jnp.sum(ldir * ldir, axis=-1), 1e-12)
@@ -747,8 +294,8 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
         # Light direction in tangent space (for the walk's eval hook).
         wl_t = jnp.stack([jnp.sum(wl * u, axis=-1),
                           jnp.sum(wl * v, axis=-1), cos_s], -1)
-        # Shadow query with t_max: clusters behind the light are pruned
-        # in the kernel (the sweep's any-hit analog).
+        # Shadow query with t_max: everything behind the light is
+        # pruned, and the CUDA traversal stops at the first blocker.
         t_lim = jnp.where(nee_mask, dist * (1.0 - 1e-3), 1.0)
         t_s, _, _ = isect(scene, pos_hit, wl, eps=cfg.eps, t_max=t_lim,
                           any_hit=True)
@@ -820,9 +367,7 @@ def trace_rays(scene, cfg: RenderConfig, origin, direction, seed,
 
     Returns (radiance [R, 3], seed', rays_traced).
     """
-    isect = intersect_fn or pick_intersect(cfg, scene)
-    mode = resolve_intersect_mode(cfg, scene)
-    use_sort = (cfg.sort_rays and mode != "bvh" and intersect_fn is None)
+    isect = intersect_fn or select_traversal(cfg.intersect)
     r = origin.shape[0]
     acc = jnp.zeros((r, 3), jnp.float32)
     mask = jnp.ones((r, 3), jnp.float32)
@@ -837,17 +382,18 @@ def trace_rays(scene, cfg: RenderConfig, origin, direction, seed,
          rays_traced) = state
         rays_traced = rays_traced + jnp.sum(alive.astype(jnp.float32))
         # Park dead lanes far outside the scene (non-destructive copies):
-        # every cluster slab test fails for them, so sorted all-dead
-        # sub-tiles cost no MT work in the sweep kernel.
+        # their root slab test fails, so they leave the walk at once.
         o_i = jnp.where(alive[:, None], origin, 1e30)
         d_i = jnp.where(alive[:, None], direction, 1.0)
-        if use_sort:
-            t, obj, tri = sorted_intersect(isect, scene, o_i, d_i, cfg.eps)
-        else:
+        # Named scopes label the device ops in profiler traces
+        # (chip_smoke.py reads the shade stage's device time by them).
+        with jax.named_scope("traverse"):
             t, obj, tri = isect(scene, o_i, d_i, eps=cfg.eps)
-        origin, direction, acc, mask, alive, seed, prev_pdf = shade_step(
-            scene, cfg, origin, direction, acc, mask, alive, seed, bounce,
-            t, obj, tri, prev_pdf=prev_pdf, isect=isect)
+        with jax.named_scope("shade"):
+            origin, direction, acc, mask, alive, seed, prev_pdf = \
+                shade_step(scene, cfg, origin, direction, acc, mask,
+                           alive, seed, bounce, t, obj, tri,
+                           prev_pdf=prev_pdf, isect=isect)
         return (origin, direction, acc, mask, alive, seed, prev_pdf,
                 rays_traced)
 
@@ -860,20 +406,6 @@ def trace_rays(scene, cfg: RenderConfig, origin, direction, seed,
     return acc, seed, rays_traced
 
 
-def _block_shape(cfg: RenderConfig, rows: int, w: int, scene=None):
-    """Pixel-block shape so one intersect tile = one compact 2-D block.
-
-    Compact blocks make the rays in a tile spatially coherent, which is
-    what the cluster kernels' tile-level culling feeds on (a 32x16
-    block touches ~3x fewer clusters than a 512-wide scanline strip).
-    """
-    bw = 32
-    bh = intersect_tile(cfg, scene) // bw
-    if rows % bh == 0 and w % bw == 0 and bh > 0:
-        return bh, bw
-    return None
-
-
 def render_rows(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seed,
                 y0, rows: int):
     """Render a horizontal slab of ``rows`` image rows starting at
@@ -882,10 +414,6 @@ def render_rows(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seed,
     the full-frame pixels — the invariant the tile-parallel sharding
     relies on.
 
-    Rays are traced in block-major order (one sweep tile = one compact
-    pixel block) and the radiance is un-permuted by a pure
-    reshape/transpose at the end.
-
     Returns (radiance [rows, W, 3], rays_traced scalar).
     """
     w = cfg.render_width
@@ -893,27 +421,13 @@ def render_rows(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seed,
     ys, xs = jnp.meshgrid(jnp.arange(rows, dtype=jnp.float32),
                           jnp.arange(w, dtype=jnp.float32), indexing="ij")
     ys = ys + y0.astype(jnp.float32)
-
-    blk = _block_shape(cfg, rows, w, scene)
-    if blk is not None:
-        bh, bw = blk
-        def to_blocks(a):
-            return a.reshape(rows // bh, bh, w // bw, bw).transpose(
-                0, 2, 1, 3).reshape(-1)
-        pixel_xy = jnp.stack([to_blocks(xs), to_blocks(ys)], -1)
-    else:
-        pixel_xy = jnp.stack([xs, ys], -1).reshape(-1, 2)
+    pixel_xy = jnp.stack([xs, ys], -1).reshape(-1, 2)
 
     seed = seed_from_pixel(ubo_seed, pixel_xy, parity=cfg.parity_rng)
     origin, direction, seed = generate_ray(
         cam_world, fov_y, pixel_xy, (w, h), seed,
         rand=get_rand(cfg.parity_rng))
     radiance, _, rays = trace_rays(scene, cfg, origin, direction, seed)
-
-    if blk is not None:
-        bh, bw = blk
-        radiance = radiance.reshape(rows // bh, w // bw, bh, bw, 3
-                                    ).transpose(0, 2, 1, 3, 4)
     return radiance.reshape(rows, w, 3), rays
 
 
@@ -934,7 +448,7 @@ def accumulate_sample(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seed,
                       accum, reset):
     """Progressive step: render one sample and accumulate-or-reset
     (path_tracing.comp:346-351; the accumulation buffer is donated, the
-    TPU analog of the persistent RGBA32F image).
+    analog of the persistent RGBA32F image).
 
     Returns (accum', rays_traced) — exact ray count for Mrays/sec.
     """

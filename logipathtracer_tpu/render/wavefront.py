@@ -1,17 +1,19 @@
 """Pooled wavefront renderer.
 
-The full TPU restructuring of the reference's megakernel (SURVEY.md §7
-step 3, BASELINE.json config 4): a persistent pool of rays where
+A restructuring of the reference's megakernel (SURVEY.md §7 step 3,
+BASELINE.json config 4): a persistent pool of rays where
 
   * every iteration REGENERATES dead lanes with fresh (pixel, sample)
-    work items — the stream-compaction equivalent that keeps all VPU
-    lanes busy instead of carrying dead lanes to the end of the frame
-    like the lockstep megakernel does,
+    work items — the stream-compaction equivalent that keeps all lanes
+    busy instead of carrying dead lanes to the end of the frame like
+    the lockstep megakernel does,
   * live rays are SORTED each iteration by direction octant + origin
-    Morton code, so the cluster-sweep kernel sees coherent tiles even
-    for deep bounce rays,
-  * terminated paths scatter-add their radiance into the (block-major)
-    accumulation buffer keyed by pixel id.
+    Morton code, so neighbouring lanes trace coherent rays even for
+    deep bounce rays,
+  * terminated paths scatter-add their radiance into the accumulation
+    buffer keyed by pixel id.  On a GPU the scatter-add is atomic and
+    its order changes from run to run, so accumulation there is not
+    bit-reproducible.
 
 Scheduling knobs (both preserve per-work-item radiance exactly — they
 only change WHEN maintenance passes run):
@@ -51,8 +53,8 @@ import jax.numpy as jnp
 from logipathtracer_tpu.config import RenderConfig
 from logipathtracer_tpu.ops.camera import generate_ray
 from logipathtracer_tpu.ops.rng import get_rand, seed_from_pixel
-from logipathtracer_tpu.render.megakernel import (pick_intersect,
-                                                  ray_sort_key, shade_step)
+from logipathtracer_tpu.ops.traverse import select_traversal
+from logipathtracer_tpu.render.megakernel import ray_sort_key, shade_step
 
 _I32_MAX = jnp.iinfo(jnp.int32).max
 
@@ -75,64 +77,16 @@ def _bitcast_i(x):
     return jax.lax.bitcast_convert_type(x, jnp.int32)
 
 
-def pix_layout(cfg: RenderConfig, scene, rows: int, w: int):
-    """Block-major pixel mapping parameters (pure arithmetic, no index
-    tables), sized so one RESOLVED intersect tile = one compact pixel
-    block.  Returns (blocked, bh, bw)."""
-    from logipathtracer_tpu.render.megakernel import intersect_tile
-    bw = 32
-    bh = max(intersect_tile(cfg, scene) // bw, 1)
-    return (rows % bh == 0) and (w % bw == 0), bh, bw
-
-
-def _make_pix_coords(blocked: bool, bh: int, bw: int, w: int, y0):
+def _make_pix_coords(w: int, y0):
     def pix_coords(pixi):
-        if blocked:
-            per_block = bh * bw
-            blk = pixi // per_block
-            within = pixi % per_block
-            bx = blk % (w // bw)
-            by = blk // (w // bw)
-            px = bx * bw + within % bw
-            py = by * bh + within // bw
-        else:
-            px = pixi % w
-            py = pixi // w
+        px = pixi % w
+        py = pixi // w
         return px.astype(jnp.float32), (py + y0).astype(jnp.float32)
     return pix_coords
 
 
-def unblock_accum(accum, blocked: bool, bh: int, bw: int, rows: int, w: int):
-    """Undo the block-major pixel mapping -> [rows, w, 3] frame."""
-    if blocked:
-        accum = accum.reshape(rows // bh, w // bw, bh, bw, 3).transpose(
-            0, 2, 1, 3, 4)
-    return accum.reshape(rows, w, 3)
-
-
-def wavefront_pool_state(p: int, npix: int, cm: bool = False):
-    """Fresh pool state: every lane free, zero accumulation.
-
-    ``cm`` stores the vector state component-major ([3, p] / [2, p]
-    rows, cfg.pool_cm) — lanes on the minor (lane) dim, so every
-    consumer reads naturally-tiled rows instead of [p, 3] columns."""
-    if cm:
-        return dict(
-            origin=jnp.zeros((3, p)),
-            direction=jnp.zeros((3, p)).at[2, :].set(1.0),
-            mask=jnp.ones((3, p)),
-            acc=jnp.zeros((3, p)),
-            seed=jnp.zeros((2, p), jnp.uint32),
-            alive=jnp.zeros((p,), bool),
-            pending=jnp.zeros((p,), bool),
-            prev_pdf=jnp.zeros((p,), jnp.float32),
-            bounce=jnp.zeros((p,), jnp.int32),
-            pixid=jnp.zeros((p,), jnp.int32),
-            next_work=jnp.zeros((), jnp.int32),
-            accum=jnp.zeros((npix, 3)),
-            rays=jnp.zeros((), jnp.float32),
-            it=jnp.zeros((), jnp.int32),
-        )
+def wavefront_pool_state(p: int, npix: int):
+    """Fresh pool state: every lane free, zero accumulation."""
     return dict(
         origin=jnp.zeros((p, 3)),
         direction=jnp.zeros((p, 3)).at[:, 2].set(1.0),
@@ -158,17 +112,7 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
     -> shade.  ``drain=True`` statically removes the regen stage (no new
     work is injected while the pool empties)."""
     h, w = cfg.render_height, cfg.render_width
-    cm = cfg.pool_cm
-    if cm and not cfg.sort_variadic:
-        raise ValueError("pool_cm requires sort_variadic (the packed "
-                         "sort is the [P, 3] form)")
-    isect = pick_intersect(cfg, scene, cm=cm)
-    # Layout helpers: lane-broadcast a per-lane condition over a vector
-    # state array, pick component i, and restack sorted component rows.
-    vbc = ((lambda c: c[None, :]) if cm else (lambda c: c[:, None]))
-    comp = ((lambda a, i: a[i]) if cm else (lambda a, i: a[:, i]))
-    vstack = ((lambda xs: jnp.stack(xs, axis=0)) if cm
-              else (lambda xs: jnp.stack(xs, axis=1)))
+    isect = select_traversal(cfg.intersect)
 
     def body(st):
         origin, direction = st["origin"], st["direction"]
@@ -187,19 +131,16 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
             # Alive keys are 18-bit (octant<<15 | morton); free lanes
             # sort just above them, and retired lanes sort last KEYED
             # BY PIXID — the flush tail then has ascending scatter
-            # indices, which XLA's scatter exploits (~10x between
-            # random and near-sorted row access measured in
-            # scripts/maint_probe.py).
+            # indices (indices_are_sorted below).
             key = jnp.where(
-                alive, ray_sort_key(scene, origin, direction, cm=cm),
+                alive, ray_sort_key(scene, origin, direction),
                 jnp.where(retired, (1 << 18) + 1 + pixid, 1 << 18))
             # bounce, alive, pending share one int row — the permuted
             # payload is the cost, so pack tight; prev_pdf rides only
             # when NEE needs it (static).  When pixid also fits (24
             # bits; frames up to 16M pixels) it joins the same row:
-            # each payload operand of the variadic sort costs a full
-            # ~0.55 ns/row gather pass (ROADMAP round-3 sort split),
-            # so one fewer column is a direct maintenance saving.
+            # each payload operand of the variadic sort is a full
+            # gather pass, so one fewer column is a direct saving.
             pack_pix = npix < (1 << 24) and cfg.max_depth < 64
             if pack_pix:
                 flags = (pixid | (bounce << 24)
@@ -210,36 +151,32 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
                          | (pending.astype(jnp.int32) << 17))
             if cfg.sort_variadic:
                 # ONE variadic lax.sort carries every state column as
-                # a payload operand.  Measured EQUAL to the round-2
-                # sort_key_val + wide-gather form in production (10.3
-                # vs 10.5 ms/iter on the cornell 1M pool) — XLA:TPU
-                # lowers payload sorts to a key sort + per-operand row
-                # gathers, so the row-gather floor stays — but it
-                # skips the [P, 17] packed concat materialization and
-                # is the simpler graph.  lax.sort is stable, so the
-                # permutation is bit-identical to the gather form's.
+                # a payload operand; it skips the [P, 17] packed concat
+                # materialization of the gather form below.  lax.sort
+                # is stable, so the permutation is bit-identical to
+                # the gather form's.
                 # Int payloads ride as f32 bitcasts (sort never
                 # compares payloads, so arbitrary bit patterns are
                 # safe).
                 seedf = _bitcast_f(seed.astype(jnp.int32))
                 ops = [key,
-                       comp(origin, 0), comp(origin, 1), comp(origin, 2),
-                       comp(direction, 0), comp(direction, 1),
-                       comp(direction, 2),
-                       comp(mask, 0), comp(mask, 1), comp(mask, 2),
-                       comp(acc, 0), comp(acc, 1), comp(acc, 2),
-                       comp(seedf, 0), comp(seedf, 1),
+                       origin[:, 0], origin[:, 1], origin[:, 2],
+                       direction[:, 0], direction[:, 1],
+                       direction[:, 2],
+                       mask[:, 0], mask[:, 1], mask[:, 2],
+                       acc[:, 0], acc[:, 1], acc[:, 2],
+                       seedf[:, 0], seedf[:, 1],
                        _bitcast_f(flags)]
                 if not pack_pix:
                     ops.append(_bitcast_f(pixid))
                 if cfg.nee:
                     ops.append(prev_pdf)
                 out = jax.lax.sort(tuple(ops), num_keys=1)
-                origin = vstack(out[1:4])
-                direction = vstack(out[4:7])
-                mask = vstack(out[7:10])
-                acc = vstack(out[10:13])
-                seed = _bitcast_i(vstack(out[13:15])).astype(jnp.uint32)
+                origin = jnp.stack(out[1:4], axis=1)
+                direction = jnp.stack(out[4:7], axis=1)
+                mask = jnp.stack(out[7:10], axis=1)
+                acc = jnp.stack(out[10:13], axis=1)
+                seed = _bitcast_i(jnp.stack(out[13:15], axis=1)).astype(jnp.uint32)
                 flags = _bitcast_i(out[15])
                 pixid = (flags & 0xFFFFFF if pack_pix
                          else _bitcast_i(out[16]))
@@ -293,46 +230,25 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
                     # at row 0 with a zero addend keeps the index array
                     # ascending, so the sorted-scatter promise holds.
                     idx = jnp.where(flush[sl], pixid[sl], 0)
-                    vals = (jnp.where(flush[sl][None, :],
-                                      acc[:, sl], 0.0).T if cm
-                            else jnp.where(flush[sl, None], acc[sl], 0.0))
+                    vals = jnp.where(flush[sl, None], acc[sl], 0.0)
                     return accum.at[idx].add(vals, indices_are_sorted=True)
                 return f
 
             def flush_full(accum):
-                vals = (jnp.where(flush[None, :], acc, 0.0).T if cm
-                        else jnp.where(flush[:, None], acc, 0.0))
+                vals = jnp.where(flush[:, None], acc, 0.0)
                 return accum.at[pixid].add(vals)
 
-            use_bins = (cfg.flush_bins
-                        and jax.default_backend() == "tpu"
-                        and npix < (1 << 24))  # exact-f32 pixel ids
-
-            if use_bins:
-                # Dense bin-matmul flush kernel (ops/pallas/flush.py):
-                # O(npix/BW) grid + O(retired rows/128) matmul blocks
-                # instead of ~110-370 ns/row scatter.  The searchsorted
-                # prepass skips the -1 (non-retired) prefix entirely,
-                # so covering the FULL sorted pool costs the same as a
-                # tail slice — no burst-iteration fallback needed (the
-                # scatter fallback spiked 42 ms whenever a retire burst
-                # overflowed the tail cap; measured stage_profile r3).
-                from logipathtracer_tpu.ops.pallas.flush import flush_bins
-
-                accum = flush_bins(
-                    accum, jnp.where(flush, pixid, -1), acc, cm=cm)
-            else:
-                # XLA cond ladder: smallest power-of-two tail slice
-                # covering the retired rows (scatter cost is per-row).
-                caps = [c for c in
-                        (flush_cap // 4, flush_cap // 2, flush_cap)
-                        if 0 < c < p]
-                accum_fn = flush_full
-                for c in reversed(caps):
-                    accum_fn = (
-                        lambda accum, c=c, nxt=accum_fn: jax.lax.cond(
-                            n_flush <= c, flush_tail(c), nxt, accum))
-                accum = accum_fn(accum)
+            # Cond ladder: smallest power-of-two tail slice covering
+            # the retired rows (scatter cost is per-row).
+            caps = [c for c in
+                    (flush_cap // 4, flush_cap // 2, flush_cap)
+                    if 0 < c < p]
+            accum_fn = flush_full
+            for c in reversed(caps):
+                accum_fn = (
+                    lambda accum, c=c, nxt=accum_fn: jax.lax.cond(
+                        n_flush <= c, flush_tail(c), nxt, accum))
+            accum = accum_fn(accum)
             # Every branch (incl. the full fallback) covers all retired
             # rows, so the pending clear is unconditional.
             pending = pending & ~flush
@@ -351,8 +267,7 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
              prev_pdf, bounce, pixid, accum) = args
         else:
             flush = pending & ~alive
-            vals = (jnp.where(flush[None, :], acc, 0.0).T if cm
-                    else jnp.where(flush[:, None], acc, 0.0))
+            vals = jnp.where(flush[:, None], acc, 0.0)
             accum = accum.at[pixid].add(vals)
             pending = pending & ~flush
 
@@ -373,12 +288,7 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
             o_new, d_new, nseed = generate_ray(
                 cam_world, fov_y, jnp.stack([px, py], -1), (w, h), nseed,
                 active=valid, rand=get_rand(cfg.parity_rng))
-            if cm:
-                # Window-sized [n, 3] -> [3, n] relayout (the regen
-                # window is p/8 steady-state; the full-pool arrays
-                # never transpose).
-                o_new, d_new, nseed = o_new.T, d_new.T, nseed.T
-            vx = vbc(valid)
+            vx = valid[:, None]
             out = dict(
                 origin=jnp.where(vx, o_new, sub["origin"]),
                 direction=jnp.where(vx, d_new, sub["direction"]),
@@ -407,11 +317,9 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
         # [n_alive, P): the sort orders alive < free < retired and the
         # flush just freed the retired tail.  Steady-state regen then
         # only needs a CAP-row window there instead of full-pool
-        # cumsum + selects (the 7 ms/Mray regen stage drops with the
-        # slice ratio); a cond ladder picks the smallest window
-        # covering the free region (steady-state kill rates are
-        # ~12-30%/iteration, so the p//8 rung fires most iterations);
-        # frame-warmup iterations take the full-pool path.
+        # cumsum + selects; a cond ladder picks the smallest window
+        # covering the free region; frame-warmup iterations take the
+        # full-pool path.
         regen_caps = sorted({min(p, max(c, REGEN_FLOOR))
                              for c in (p // 16, p // 8, p // 4, p // 2)})
 
@@ -421,14 +329,11 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
                 next_work = args[10]
                 n_alive = jnp.sum(st["alive"].astype(jnp.int32))
                 start = jnp.minimum(n_alive, p - cap_k)
-                # Lane axis: last under cm ([3, P]/[2, P] rows), first
-                # otherwise (every per-lane array is 1-D either way).
-                ax = {k: (st[k].ndim - 1 if cm else 0) for k in _KEYS}
                 sub = {k: jax.lax.dynamic_slice_in_dim(
-                    st[k], start, cap_k, axis=ax[k]) for k in _KEYS}
+                    st[k], start, cap_k, axis=0) for k in _KEYS}
                 out, next_work = regen_rows(sub, next_work)
                 st = {k: jax.lax.dynamic_update_slice_in_dim(
-                    st[k], out[k], start, axis=ax[k]) for k in _KEYS}
+                    st[k], out[k], start, axis=0) for k in _KEYS}
                 return tuple(st[k] for k in _KEYS) + (next_work,)
             return f
 
@@ -466,13 +371,12 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
 
         # ---- park dead lanes ------------------------------------------
         # Lanes that are retired-but-unflushed or out of work still ride
-        # through the intersect kernel; parking them at a far origin
-        # makes every cluster slab test fail, so the sweep skips all MT
-        # work for tiles of parked lanes (they sort to the pool tail).
+        # through traversal; parking them at a far origin makes their
+        # root slab test fail, so they leave the walk at once.
         # Destructive: regen re-fills origin/direction before reuse.
         dead = ~alive
-        origin = jnp.where(vbc(dead), 1e30, origin)
-        direction = jnp.where(vbc(dead), 1.0, direction)
+        origin = jnp.where(dead[:, None], 1e30, origin)
+        direction = jnp.where(dead[:, None], 1.0, direction)
 
         # ---- intersect + shade ----------------------------------------
         rays = st["rays"] + jnp.sum(alive.astype(jnp.float32))
@@ -487,7 +391,7 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
                 shade_step(scene, cfg, sub["origin"], sub["direction"],
                            sub["acc"], sub["mask"], sub["alive"],
                            sub["seed"], sub["bounce"], t, obj, tri,
-                           prev_pdf=sub["prev_pdf"], isect=isect, cm=cm)
+                           prev_pdf=sub["prev_pdf"], isect=isect)
             bounce = jnp.where(shaded_alive, sub["bounce"] + 1,
                                sub["bounce"])
             return dict(origin=origin, direction=direction, acc=acc,
@@ -509,21 +413,19 @@ def _make_body(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
         # contiguously).  Tracing + shading only the smallest window
         # covering the alive lanes skips the per-lane cost of parked
         # tail lanes entirely — intersect already parks them cheaply,
-        # but shade's table gathers and the fused kernel are O(window).
-        # Bit-identical for live lanes: tile boundaries of the prefix
-        # window match the full dispatch (lane 0 alignment), and dead
-        # tail state is untouched either way (regen overwrites it).
+        # but shade's table gathers are O(window).  Bit-identical for
+        # live lanes: every lane is traced and shaded independently,
+        # and dead tail state is untouched either way (regen
+        # overwrites it).
         def trace_sliced(cap_k):
             def f(args):
                 stt = dict(zip(_TKEYS, args))
-                ax = {k: (stt[k].ndim - 1 if cm else 0) for k in _TKEYS}
-                sub = {k: jax.lax.slice_in_dim(stt[k], 0, cap_k,
-                                               axis=ax[k])
+                sub = {k: jax.lax.slice_in_dim(stt[k], 0, cap_k, axis=0)
                        for k in _TKEYS}
                 out = trace_shade_rows(sub)
                 stt = {k: jnp.concatenate(
                     [out[k], jax.lax.slice_in_dim(
-                        stt[k], cap_k, p, axis=ax[k])], axis=ax[k])
+                        stt[k], cap_k, p, axis=0)], axis=0)
                     for k in _TKEYS}
                 return tuple(stt[k] for k in _TKEYS)
             return f
@@ -582,10 +484,9 @@ def render_wavefront(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
     s = ubo_seeds.shape[0]
     total = s * npix
     p = min(pool, total)
-    blocked, bh, bw = pix_layout(cfg, scene, rows, w)
-    pix_coords = _make_pix_coords(blocked, bh, bw, w, y0)
+    pix_coords = _make_pix_coords(w, y0)
 
-    state = wavefront_pool_state(p, npix, cm=cfg.pool_cm)
+    state = wavefront_pool_state(p, npix)
 
     # Lazy maintenance stretches frames over more iterations; keep
     # generous slack for both knobs.
@@ -597,10 +498,9 @@ def render_wavefront(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
             & (st["it"] < max_iters)
 
     # Retired (dead-but-unflushed) lanes are sorted to the pool tail so
-    # the flush scatter usually covers only this slice (a full-pool
-    # scatter-add costs ~45 ms/iteration at 1M lanes; the tail slice
-    # ~1/4 of that).  A lax.cond falls back to the full scatter on the
-    # rare iterations where more lanes retire than the slice holds.
+    # the flush scatter usually covers only this slice.  A lax.cond
+    # falls back to the full scatter on the rare iterations where more
+    # lanes retire than the slice holds.
     body = _make_body(scene, cfg, cam_world, fov_y, ubo_seeds, p, npix,
                       total, min(p, flush_cap), pix_coords)
 
@@ -610,12 +510,9 @@ def render_wavefront(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
     # (with sort_every > 1 the loop can exit between maintenance
     # passes; harmless no-op otherwise).
     final_flush = state["pending"] & ~state["alive"]
-    vals = (jnp.where(final_flush[None, :], state["acc"], 0.0).T
-            if cfg.pool_cm
-            else jnp.where(final_flush[:, None], state["acc"], 0.0))
+    vals = jnp.where(final_flush[:, None], state["acc"], 0.0)
     accum = accum.at[state["pixid"]].add(vals)
-    return (unblock_accum(accum, blocked, bh, bw, rows, w),
-            state["rays"], state["it"])
+    return accum.reshape(rows, w, 3), state["rays"], state["it"]
 
 
 @partial(jax.jit, static_argnames=("cfg", "flush_cap", "rows"),
@@ -641,8 +538,7 @@ def wavefront_chunk(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
         f"pool state npix {state['accum'].shape[0]} != frame {npix}"
     s = ubo_seeds.shape[0]
     total = s * npix
-    blocked, bh, bw = pix_layout(cfg, scene, rows, w)
-    pix_coords = _make_pix_coords(blocked, bh, bw, w, y0)
+    pix_coords = _make_pix_coords(w, y0)
 
     body = _make_body(scene, cfg, cam_world, fov_y, ubo_seeds, p, npix,
                       total, min(p, flush_cap), pix_coords)
@@ -676,8 +572,7 @@ def wavefront_drain(scene, cfg: RenderConfig, state,
     npix = rows * w
     p = state["pixid"].shape[0]  # lane count, layout-independent
     assert state["accum"].shape[0] == npix
-    blocked, bh, bw = pix_layout(cfg, scene, rows, w)
-    pix_coords = _make_pix_coords(blocked, bh, bw, w, y0)
+    pix_coords = _make_pix_coords(w, y0)
 
     body = _make_body(scene, cfg, None, None,
                       jnp.ones((1, 2), jnp.uint32), p, npix,
@@ -696,8 +591,6 @@ def wavefront_drain(scene, cfg: RenderConfig, state,
     # Paranoia flush (mirrors render_wavefront's final flush; a no-op
     # unless max_iters cut the loop short).
     final_flush = state["pending"] & ~state["alive"]
-    vals = (jnp.where(final_flush[None, :], state["acc"], 0.0).T
-            if cfg.pool_cm
-            else jnp.where(final_flush[:, None], state["acc"], 0.0))
+    vals = jnp.where(final_flush[:, None], state["acc"], 0.0)
     accum = state["accum"].at[state["pixid"]].add(vals)
     return dict(state, accum=accum, pending=state["pending"] & ~final_flush)

@@ -1,10 +1,9 @@
 """Scene compiler: loaded glTF → device SoA.
 
-TPU-native replacement for PTSceneConverter / RTXSceneConverter
+Replacement for PTSceneConverter / RTXSceneConverter
 (src/PTSceneConverter.cpp:29-156, src/RTXSceneConverter.cpp:29-89): one
-compiler serves both of the reference's backends because on TPU there
-is no hardware acceleration structure — BLAS/TLAS and the software
-two-level BVH collapse into the same SoA arrays.
+compiler serves both of the reference's backends — BLAS/TLAS and the
+software two-level BVH collapse into the same SoA arrays.
 
 Per submesh ("object", matching the reference's per-submesh
 GPUObjectData at src/PTSceneConverter.cpp:63-88):
@@ -197,65 +196,6 @@ def compile_scene(gltf: Gltf, config: RenderConfig | None = None,
         light_cdf = np.ones((1,), np.float32)
         total_area = 0.0
 
-    # Clustered sweep arrays (built from a lightweight stand-in SoA view
-    # so clusters.py can run before the SceneSoA exists).
-    from logipathtracer_tpu.scene.clusters import build_clusters
-
-    class _View:
-        pass
-
-    view = _View()
-    view.mesh_bvh_meta = mesh_bvh_meta
-    view.mesh_bvh_min = mesh_bvh_min
-    view.mesh_bvh_max = mesh_bvh_max
-    view.obj_bvh_offset = obj_bvh_offset
-    view.obj_vtx_offset = obj_vtx_offset
-    view.vtx_pos = vtx_pos
-    view.obj_world_inv = obj_world_inv
-    view.num_objects = num_objects
-    if cfg.cluster_size == 0:
-        # Auto: resident-class scenes keep 256 (measured best on
-        # cornell, ROADMAP rounds 2-3); scenes whose cluster data
-        # exceeds the resident VMEM budget will stream chunks from
-        # HBM, where the per-fired-cluster machinery is launch-bound
-        # at ~17 passing lanes — 512-triangle clusters amortize it
-        # (measured +30% bounce intersect on the outside-class scene,
-        # round-3 resumed session).
-        from logipathtracer_tpu.render.megakernel import \
-            resident_sweep_fits
-        # Residency is predicted for the intersect mode the render will
-        # actually resolve (ADVICE r3: a 'sweep' config sizes its tiles
-        # with sweep_tile, so predicting with compact_tile could pick a
-        # cluster size the sweep then can't hold resident).
-        mode = ("sweep" if cfg.intersect in ("sweep", "sweep_interpret")
-                else "compact")
-        clustered = build_clusters(view, cluster_size=256)
-        if not resident_sweep_fits(clustered.cl_tris.shape[0], 256,
-                                   num_objects, cfg, mode=mode):
-            clustered = build_clusters(view, cluster_size=512)
-    else:
-        clustered = build_clusters(view, cluster_size=cfg.cluster_size)
-    cl_meta = np.stack([clustered.cl_obj, clustered.cl_tri_base],
-                       axis=1).astype(np.int32)
-
-    # Per-octant front-to-back cluster order: sweeping near clusters
-    # first makes the kernel's best_t slab pruning effective (clusters
-    # behind the closest hit fail the slab test and skip their MT).
-    cl_center_world = np.zeros((cl_meta.shape[0], 3), np.float32)
-    for i in range(cl_meta.shape[0]):
-        o = int(cl_meta[i, 0])
-        center = 0.5 * (clustered.cl_aabb[i, 0:3]
-                        + clustered.cl_aabb[i, 3:6])
-        m = obj_world[o]
-        cl_center_world[i] = m[:3, :3] @ center + m[:3, 3]
-    cl_order = np.zeros((8, cl_meta.shape[0]), np.int32)
-    for oct_ in range(8):
-        sign = np.array([1.0 if oct_ & 4 else -1.0,
-                         1.0 if oct_ & 2 else -1.0,
-                         1.0 if oct_ & 1 else -1.0], np.float32)
-        cl_order[oct_] = np.argsort(cl_center_world @ sign,
-                                    kind="stable").astype(np.int32)
-
     # Packed per-triangle / per-object shade rows (scene/types.py).
     t_count = vtx_pos.shape[0] // 3
     tri_shade = np.zeros((t_count, 32), np.float32)
@@ -282,10 +222,7 @@ def compile_scene(gltf: Gltf, config: RenderConfig | None = None,
     obj_shade[:, 28:32] = obj_mrti
     # Columns 32:64 carry the owning object's obj_shade row, so shading
     # needs ONE [T, 64] row gather keyed by hit triangle instead of two
-    # 32-wide gathers keyed by (tri, obj) — gathers cost per ROW on TPU
-    # (measured ~10 ms/iteration for the pair on the cornell 1M pool,
-    # scripts/stage_profile.py --shade-split round 3).  obj_shade stays
-    # as the standalone per-object table for the texture prologue.
+    # 32-wide gathers keyed by (tri, obj).
     tri_obj = np.zeros((t_count,), np.int32)
     for o in range(num_objects):
         s = obj_vtx_offset[o] // 3
@@ -323,10 +260,6 @@ def compile_scene(gltf: Gltf, config: RenderConfig | None = None,
         tex_mip_base=tex_mip_base,
         tex_mip_count=tex_mip_count,
         tex_quad=tex_quad,
-        cl_meta=cl_meta,
-        cl_aabb=clustered.cl_aabb,
-        cl_tris=clustered.cl_tris,
-        cl_order=cl_order,
         tri_shade=tri_shade,
         obj_shade=obj_shade,
         world_aabb=np.stack([np.stack(obj_world_aabb_min).min(axis=0),
@@ -338,13 +271,11 @@ def compile_scene(gltf: Gltf, config: RenderConfig | None = None,
         num_objects=num_objects,
         num_triangles=vtx_pos.shape[0] // 3,
         max_stack=max_stack,
-        cluster_size=clustered.cluster_size,
         leaf_width=int((fused_meta[fused_meta[:, 0] == 1][:, 2]
                         - fused_meta[fused_meta[:, 0] == 1][:, 1]).max()),
         has_textures=bool(gltf.textures),
-        # Static per-slot usage: lets the shade texture prologue skip
-        # the 4-gather taps of slots NO object uses (round-4 lever —
-        # each tap measured ~14 ms/Mray of gather machinery).
+        # Static per-slot usage: lets shading skip the 4-gather taps
+        # of slots NO object uses.
         tex_slots=tuple(bool((obj_tex[:, s] >= 0).any())
                         for s in range(obj_tex.shape[1])),
         has_nearest=any(
@@ -485,15 +416,14 @@ def _pack_textures(gltf: Gltf, mip_levels: int = 1):
     """Shelf-pack all textures into one RGBA atlas.
 
     The reference binds up to 512 separate sampled images
-    (path_tracing.comp:105); TPU has no samplers, so sampling is a
-    gather from this atlas (ops/texture.py).
+    (path_tracing.comp:105); here sampling is a gather from this one
+    atlas (ops/texture.py).
 
     LOD-0-only scenes (mip_levels == 1) with pure 8-bit sources pack
     the atlas as ONE uint32 per texel (RGBA8, little-endian) — every
-    bilinear tap then gathers 4 u32 rows instead of 4x4 f32 rows (the
-    XLA row-gather cost is per element, so this is the single biggest
-    textured-shade lever), and the sampler's in-register unpack + /255
-    reproduces the f32 values the unpacked atlas stored.  Mip chains
+    bilinear tap then gathers 4 u32 rows instead of 4x4 f32 rows, and
+    the sampler's in-register unpack + /255 reproduces the f32 values
+    the unpacked atlas stored.  Mip chains
     (box-filtered means, not 8-bit-representable) and non-u8 sources
     keep the [AH, AW, 4] f32 layout.
 
@@ -569,7 +499,7 @@ def _pack_textures(gltf: Gltf, mip_levels: int = 1):
 
 # Quad atlas gates: MIRROR wraps reverse direction under reflection
 # (a per-texel packed neighbor cannot encode that), and the 16 B/texel
-# quad layout is capped to keep HBM use bounded on texture-heavy
+# quad layout is capped to keep device memory bounded on texture-heavy
 # scenes (16M texels = 256 MB of quad rows).
 _QUAD_WRAPS_OK = (10497, 33071)  # REPEAT, CLAMP_TO_EDGE
 _QUAD_MAX_TEXELS = 16 * 1024 * 1024
@@ -581,12 +511,9 @@ def _build_quad_atlas(atlas, table):
     applied at pack time.
 
     A bilinear tap then needs ONE 4-col row gather instead of four
-    1-col gathers (ops/texture.py::_bilinear); XLA row gathers pay a
-    ~5-8 ns/row pipeline floor PER GATHER OP while extra columns ride
-    free (measured, scripts/shade_gather_probe.py — this was ~3/4 of
-    the 46 ms/Mray textured-shade wall).  The reference needs nothing
-    like this: Vulkan samplers filter in fixed-function hardware
-    (shaders/path_tracing.comp:244-261).
+    1-col gathers (ops/texture.py::_bilinear).  The reference needs
+    nothing like this: Vulkan samplers filter in fixed-function
+    hardware (shaders/path_tracing.comp:244-261).
 
     Returns None (callers fall back to the 4-gather path) for f32
     atlases (mip chains / non-u8 sources), MIRROR wraps, or atlases

@@ -346,6 +346,94 @@ def load_gltf(path: str) -> Gltf:
                 name=os.path.splitext(os.path.basename(path))[0])
 
 
+def write_glb(gltf: Gltf, path: str) -> str:
+    """Write an untextured scene as a binary glTF (.glb) that
+    ``load_gltf`` reads back to the same triangles, materials, world
+    matrices and cameras.
+
+    Each mesh node becomes one root node with its world ``matrix`` and
+    one mesh whose primitives are de-indexed float32 POSITION / NORMAL
+    (/ TEXCOORD_0) streams in one embedded BIN chunk.  Transmission and
+    ior go into ADOBE_materials_thin_transparency, the extension the
+    reference's assets use.  Returns ``path``.
+    """
+    if gltf.textures:
+        raise ValueError("write_glb writes untextured scenes only")
+    blob = bytearray()
+    views, accessors = [], []
+
+    def put(arr: np.ndarray, typ: str, with_bounds: bool = False) -> int:
+        arr = np.ascontiguousarray(arr, np.float32)
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": arr.nbytes})
+        blob.extend(arr.tobytes())
+        acc = {"bufferView": len(views) - 1, "componentType": 5126,
+               "count": int(arr.shape[0]), "type": typ}
+        if with_bounds:
+            acc["min"] = arr.min(axis=0).tolist()
+            acc["max"] = arr.max(axis=0).tolist()
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    def matrix(m: np.ndarray) -> list:
+        return np.asarray(m, np.float32).T.reshape(-1).tolist()
+
+    nodes, meshes = [], []
+    for node in gltf.mesh_nodes:
+        prims = []
+        for p in node.primitives:
+            attrs = {"POSITION": put(p.positions.reshape(-1, 3), "VEC3",
+                                     with_bounds=True),
+                     "NORMAL": put(p.normals.reshape(-1, 3), "VEC3")}
+            if p.uvs is not None:
+                attrs["TEXCOORD_0"] = put(p.uvs.reshape(-1, 2), "VEC2")
+            prim = {"attributes": attrs}
+            if p.material >= 0:
+                prim["material"] = int(p.material)
+            prims.append(prim)
+        meshes.append({"primitives": prims})
+        nodes.append({"name": node.name, "mesh": len(meshes) - 1,
+                      "matrix": matrix(node.world_matrix)})
+    cameras = []
+    for cam in gltf.cameras:
+        cameras.append({"type": "perspective", "perspective": {
+            "yfov": float(cam.yfov), "znear": float(cam.znear),
+            "zfar": float(cam.zfar), "aspectRatio": 16 / 9}})
+        nodes.append({"name": cam.name, "camera": len(cameras) - 1,
+                      "matrix": matrix(cam.world_matrix)})
+    materials = []
+    for m in gltf.materials:
+        mat = {"name": m.name, "pbrMetallicRoughness": {
+            "baseColorFactor": np.asarray(m.base_color_factor).tolist(),
+            "metallicFactor": float(m.metallic_factor),
+            "roughnessFactor": float(m.roughness_factor)},
+            "emissiveFactor": np.asarray(m.emissive_factor).tolist()}
+        if m.transmission_factor > 0 or m.ior != 1.5:
+            mat["extensions"] = {"ADOBE_materials_thin_transparency": {
+                "transmissionFactor": float(m.transmission_factor),
+                "ior": float(m.ior)}}
+        materials.append(mat)
+
+    doc = {"asset": {"version": "2.0", "generator": "logipathtracer"},
+           "scene": 0, "scenes": [{"nodes": list(range(len(nodes)))}],
+           "nodes": nodes, "meshes": meshes, "materials": materials,
+           "accessors": accessors, "bufferViews": views,
+           "buffers": [{"byteLength": len(blob)}]}
+    if cameras:
+        doc["cameras"] = cameras
+    if any("extensions" in m for m in materials):
+        doc["extensionsUsed"] = ["ADOBE_materials_thin_transparency"]
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    blob.extend(b"\0" * (-len(blob) % 4))
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2,
+                            12 + 8 + len(js) + 8 + len(blob)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    return path
+
+
 def _decode_image(img: Optional[dict], buffers: list[bytes], doc: dict,
                   base_dir: str) -> np.ndarray:
     """Decode an embedded/external PNG or JPEG into RGBA8.

@@ -1,11 +1,13 @@
-"""Procedural test scenes.
+"""Procedural scenes.
 
-The reference ships two assets (cornell_box.gltf, outside.gltf) but
-outside.bin is absent from the snapshot (.MISSING_LARGE_BLOBS), so
-large-scene benchmarks need synthetic stand-ins of comparable size
-(SURVEY.md §6: outside = 51 meshes / 399,949 triangles / 49 materials).
-These builders return the same Gltf structure the loader produces, so
-they flow through compile_scene unchanged.
+The reference ships two assets (cornell_box.gltf, outside.gltf) that
+this repository does not carry, so every scene it renders is generated
+from a seed with the shape of one of them (SURVEY.md §6: cornell_box =
+11 meshes / 12,956 triangles / 6 materials; outside = 51 meshes /
+399,949 triangles / 49 materials).  These builders return the same
+Gltf structure the loader produces, so they flow through compile_scene
+unchanged, and ``scene.gltf.write_glb`` turns them into files for the
+CLI.
 """
 
 from __future__ import annotations
@@ -73,6 +75,140 @@ def _icosphere(subdiv: int = 2):
             np.stack([a, ab, ca], 1), np.stack([ab, b, bc], 1),
             np.stack([ca, bc, c], 1), np.stack([ab, bc, ca], 1)])
     return tris.astype(np.float32)
+
+
+def _grid(center, size, axis, n: int, flip: bool = False):
+    """An n x n grid of quads (2 n^2 triangles) facing +axis (-axis
+    with ``flip``), centred at ``center`` with side ``size``."""
+    c = np.asarray(center, np.float32)
+    i, j = (axis + 1) % 3, (axis + 2) % 3
+    s = (np.arange(n + 1, dtype=np.float32) / n - 0.5) * size
+    g = np.zeros((n + 1, n + 1, 3), np.float32) + c
+    g[..., i] += s[:, None]
+    g[..., j] += s[None, :]
+    a, b = g[:-1, :-1], g[1:, :-1]
+    d, e = g[1:, 1:], g[:-1, 1:]
+    quads = np.stack([a, b, d, e], axis=2).reshape(-1, 4, 3)
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    if flip:
+        tris = tris[:, ::-1]
+    n_ = np.zeros(3, np.float32)
+    n_[axis] = -1.0 if flip else 1.0
+    uv = (tris[..., [i, j]] - c[[i, j]]) / size + 0.5
+    return (tris.astype(np.float32),
+            np.broadcast_to(n_, tris.shape).copy(), uv.astype(np.float32))
+
+
+def _box(center, half):
+    """Axis-aligned box, 12 outward-facing triangles."""
+    c = np.asarray(center, np.float32)
+    h = np.asarray(half, np.float32)
+    tris, nrms = [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            i, j = (axis + 1) % 3, (axis + 2) % 3
+            p = np.zeros((4, 3), np.float32)
+            p[:, axis] = sign * h[axis]
+            p[:, i] = np.array([-1, 1, 1, -1]) * h[i]
+            p[:, j] = np.array([-1, -1, 1, 1]) * h[j]
+            p += c
+            t = np.stack([p[[0, 1, 2]], p[[0, 2, 3]]])
+            if sign < 0:
+                t = t[:, ::-1]
+            n = np.zeros(3, np.float32)
+            n[axis] = sign
+            tris.append(t)
+            nrms.append(np.broadcast_to(n, t.shape))
+    return (np.concatenate(tris).astype(np.float32),
+            np.concatenate(nrms).astype(np.float32))
+
+
+def make_cornell_scene(seed: int = 0, name: str = "cornell") -> Gltf:
+    """Cornell-class scene with the reference cornell_box's shape.
+
+    11 meshes and exactly 12,956 triangles (BASELINE.md): five
+    tessellated walls of a 2-unit box standing on y = 0, two emissive
+    ceiling panels sharing one emissive material, a tall and a short
+    box, a glass sphere and a seeded displaced "blob" under a TRS
+    transform with scale 5.  Six materials, two of them transmissive
+    (ADOBE_materials_thin_transparency, ior 1.8 and 1.5), and one
+    camera at (6, 1, 0) looking down -X with the reference's yfov.
+    ``seed`` moves the blob's displacement and the two boxes a little.
+    """
+    rng = np.random.default_rng(seed)
+    rgba = lambda *c: np.array([*c, 1.0], np.float32)
+    materials = [
+        Material(name="White", base_color_factor=rgba(0.75, 0.75, 0.75),
+                 metallic_factor=0.0, roughness_factor=0.6),
+        Material(name="Red", base_color_factor=rgba(0.63, 0.065, 0.05),
+                 metallic_factor=0.0, roughness_factor=0.6),
+        Material(name="Green", base_color_factor=rgba(0.14, 0.45, 0.09),
+                 metallic_factor=1.0, roughness_factor=0.3),
+        Material(name="EmissiveWhite",
+                 emissive_factor=np.array([5, 5, 5], np.float32),
+                 metallic_factor=0.0, roughness_factor=1.0),
+        Material(name="Mirror", base_color_factor=rgba(0.95, 0.95, 0.95),
+                 metallic_factor=0.0, roughness_factor=0.05,
+                 transmission_factor=1.0, ior=1.8),
+        Material(name="Material", base_color_factor=rgba(0.9, 0.95, 1.0),
+                 metallic_factor=0.0, roughness_factor=0.1,
+                 transmission_factor=1.0, ior=1.5),
+    ]
+    white, red, green, light, mirror, glass = range(6)
+    ident = np.eye(4, dtype=np.float32)
+    nodes = []
+
+    def add(nm, tris, nrm, uvs, mat, world=ident):
+        nodes.append(MeshNode(name=nm, world_matrix=world.copy(),
+                              primitives=[Primitive(tris, nrm, uvs, mat)]))
+
+    # Walls in box-local space, box centre translated to (0, 1, 0).
+    # 2 x (400 + 256 + 400 + 144 + 144) = 2,688 wall triangles.
+    up = ident.copy()
+    up[:3, 3] = (0.0, 1.0, 0.0)
+    add("Floor", *_grid((0, -1, 0), 2.0, 1, 20), white, up)
+    add("Ceiling", *_grid((0, 1, 0), 2.0, 1, 16, flip=True), white, up)
+    add("BackPlane", *_grid((-1, 0, 0), 2.0, 0, 20), white, up)
+    add("LeftWall", *_grid((0, 0, -1), 2.0, 2, 12), red, up)
+    add("RightWall", *_grid((0, 0, 1), 2.0, 2, 12, flip=True), green, up)
+    for k, z in enumerate((-0.35, 0.35)):
+        add(f"Light{k}", *_grid((0.0, 1.995, z), 0.4, 1, 1, flip=True),
+            light)
+
+    jit = lambda: rng.uniform(-0.05, 0.05, 2)
+    dx, dz = jit()
+    add("TallBox", *_box((-0.45 + dx, 0.6, -0.4 + dz), (0.25, 0.6, 0.25)),
+        None, white)
+    dx, dz = jit()
+    add("ShortBox", *_box((0.1 + dx, 0.2, 0.45 + dz), (0.2, 0.2, 0.2)),
+        None, green)
+
+    sphere = _icosphere(4)                      # 5,120 triangles
+    m = ident.copy()
+    m[:3, :3] *= 0.3
+    m[:3, 3] = (0.35, 0.3, -0.3)
+    add("GlassSphere", sphere, sphere.copy(), None, mirror, m)
+
+    # Blob: a unit-scale icosphere with seeded low-frequency bumps,
+    # placed by a rotation plus a uniform scale of 5 (the reference's
+    # StanfordBunny node carries the same TRS scale).
+    k = rng.normal(size=(3, 3)).astype(np.float32)
+    bump = 1.0 + 0.15 * np.sin(sphere @ k.T * 3.0).sum(-1, keepdims=True) / 3
+    blob = (sphere * bump * 0.05).astype(np.float32)
+    e1 = blob[:, 1] - blob[:, 0]
+    e2 = blob[:, 2] - blob[:, 0]
+    fn = np.cross(e1, e2)
+    fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
+    m = ident.copy()
+    m[:3, :3] = _rot_y(0.6) * 5.0
+    m[:3, 3] = (-0.1, 0.25, 0.05)
+    add("Blob", blob, np.repeat(fn[:, None], 3, axis=1), None, glass, m)
+
+    cam = CameraNode(name="Camera",
+                     world_matrix=_look_at((6, 1, 0), (0, 1, 0)),
+                     yfov=0.39959652046304894)
+    return Gltf(mesh_nodes=nodes, cameras=[cam], materials=materials,
+                textures=[], name=name)
 
 
 def make_box_scene(spheres: int = 8, subdiv: int = 3,

@@ -1,6 +1,6 @@
 """Scene SoA: the device-resident flattened scene.
 
-TPU-native replacement for the four SSBOs + texture array the reference
+Replacement for the four SSBOs + texture array the reference
 uploads (src/PTSceneConverter.cpp:146-153; GLSL bindings 2-6 in
 shaders/path_tracing.comp:89-105).  Everything is a struct-of-arrays
 jnp pytree so kernels do contiguous vectorized gathers instead of the
@@ -16,8 +16,9 @@ Two views of the BVH coexist:
     leaves replaced by the owning object's mesh root, and every node
     tagged with the object whose local space its AABB lives in
     (-1 = world space).  Traversal then needs exactly one stack and one
-    code path — the TPU-friendly restructuring of the reference's
-    nested two-level walk (shaders/path_tracing.comp:130-209).
+    code path, in the lockstep XLA walk and in the CUDA kernel alike —
+    a flattening of the reference's nested two-level walk
+    (shaders/path_tracing.comp:130-209).
 """
 
 from __future__ import annotations
@@ -102,17 +103,8 @@ class SceneSoA:
     tex_mip_base: Any     # [NT] i32 first table entry of texture t
     tex_mip_count: Any    # [NT] i32 mip levels of texture t (>= 1)
 
-    # Clustered arrays for the gather-free sweep kernel
-    # (scene/clusters.py; ops/pallas/cluster_intersect.py).
-    cl_meta: Any          # [C, 2] i32: obj, tri_base
-    cl_aabb: Any          # [C, 8] f32: min.xyz, max.xyz, pad, pad
-    cl_order: Any         # [8, C] i32: front-to-back cluster order per
-                          # direction octant (early-out pruning)
-    cl_tris: Any          # [C, 9, S] f32: v0.xyz, e1.xyz, e2.xyz lanes
-
     # Packed shade tables: ONE wide-row gather per hit instead of many
-    # narrow ones (TPU gathers cost per-row, almost independent of row
-    # width — measured 12.8 ms/M rows at 32 f32 vs 21.6 ms at 3 f32).
+    # narrow ones.
     tri_shade: Any        # [T, 64] f32: n0 n1 n2 (9), uv0..2 (6),
                           #              v0 v1 v2 (9), texel density (1),
                           #              pad (7), owning object's
@@ -148,12 +140,10 @@ class SceneSoA:
     tex_slots: tuple = (True, True, True, True, True)
                           # static per-scene slot usage (base, emissive,
                           # metallic-roughness, transmission, normal):
-                          # False = NO object textures that slot, so the
-                          # shade prologue skips its 4-gather tap
-                          # entirely (the TPU analog of the reference's
-                          # per-feature GLSL #define specialization,
-                          # SURVEY §5.6; measured round 4: each tap is
-                          # ~14 ms/Mray of XLA gather machinery)
+                          # False = NO object textures that slot, so
+                          # shading skips its 4-gather tap entirely
+                          # (the analog of the reference's per-feature
+                          # GLSL #define specialization, SURVEY §5.6)
     has_nearest: bool = False  # any texture sampler uses NEAREST
                                # filtering (glTF magFilter/minFilter
                                # 9728/998x; the reference honors these
@@ -165,7 +155,6 @@ class SceneSoA:
                           # mip-expanded tex_table
     num_lights: int = 0
     total_light_area: float = 0.0
-    cluster_size: int = 128
     cameras: tuple = ()
     name: str = ""
 
@@ -177,7 +166,6 @@ class SceneSoA:
         "vtx_pos", "vtx_nrm", "vtx_uv",
         "fused_min", "fused_max", "fused_meta",
         "tex_atlas", "tex_table", "tex_mip_base", "tex_mip_count",
-        "cl_meta", "cl_aabb", "cl_tris", "cl_order",
         "tri_shade", "obj_shade", "world_aabb",
         "light_tris", "light_cdf", "tex_quad",
     )
@@ -186,7 +174,7 @@ class SceneSoA:
                       "has_nearest",
                       "mip_levels",
                       "num_lights",
-                      "total_light_area", "cluster_size",
+                      "total_light_area",
                       "cameras", "name")
 
 

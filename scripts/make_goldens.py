@@ -1,12 +1,11 @@
-"""Generate the production-path golden images (VERDICT r3 item 5).
+"""Generate the golden images that tests/test_golden.py checks.
 
-The original golden pins the megakernel + BVH walk only; these four pin
-the code paths production actually runs (on the CPU backend, with the
-compaction kernel in interpret mode — the TPU twin is tied to it by
-the hardware bit-identity tests in tests/test_tpu.py):
+Each spec (tests/golden_specs.py) renders on the CPU backend through
+the XLA BVH walk with fixed seeds:
 
-  wavefront_cornell_64x64_4spp  — pooled wavefront + compact worklist
-                                  sweep + carryover across two chunks
+  cornell_64x64_4spp            — lockstep megakernel, numpy-built BVH
+  wavefront_cornell_64x64_4spp  — pooled wavefront + carryover across
+                                  two chunks
   cornell_nee_64x64_4spp        — NEE+MIS megakernel/wavefront shared
                                   shade path
   box_textured_64x64_2spp       — textured materials (atlas sampler)
@@ -48,7 +47,8 @@ def main():
         if args.only and args.only != name:
             continue
         t0 = time.time()
-        scene = compile_scene(spec["scene"](), spec["cfg"])
+        scene = compile_scene(spec["scene"](), spec["cfg"],
+                              use_native=spec.get("use_native", True))
         r = ProgressiveRenderer(scene, spec["cfg"], host_seed=HOST_SEED)
         for c in spec["chunks"]:
             r.step(c)

@@ -1,35 +1,34 @@
-"""Shared spec table for the production-path goldens (VERDICT r3
-item 5): used by scripts/make_goldens.py to generate and by
-tests/test_golden.py to verify.  Each spec re-renders on the CPU
-backend with fixed seeds; the compact worklist sweep runs its
-interpret twin (tied to the TPU kernel by tests/test_tpu.py
-bit-identity)."""
+"""Shared spec table for the goldens: used by scripts/make_goldens.py
+to generate and by tests/test_golden.py to verify.  Each spec
+re-renders on the CPU backend with fixed seeds through the XLA BVH
+walk."""
 
 HOST_SEED = 7
 
 
 def golden_specs():
     from logipathtracer_tpu.config import RenderConfig
-    from logipathtracer_tpu.scene.gltf import load_gltf
     from logipathtracer_tpu.scene.procedural import (make_box_scene,
+                                                     make_cornell_scene,
                                                      make_outside_scene)
 
-    cornell = lambda: load_gltf(
-        "/root/reference/resources/cornell_box.gltf")
     return {
-        # Production wavefront: compact worklist sweep (interpret twin
-        # of the TPU kernel), pooled regen/sort/flush, carryover across
-        # two 2-spp chunks.
-        "wavefront_cornell_64x64_4spp": dict(
-            scene=cornell,
+        # Lockstep megakernel on the numpy-built BVH (no native build).
+        "cornell_64x64_4spp": dict(
+            scene=make_cornell_scene,
             cfg=RenderConfig(width=64, height=64, max_depth=10,
-                             renderer="wavefront",
-                             intersect="compact_interpret",
-                             compact_tile=1024, compact_worklist=True,
+                             intersect="bvh", renderer="megakernel"),
+            chunks=(4,), use_native=False),
+        # Pooled wavefront: regen/sort/flush, carryover across two
+        # 2-spp chunks.
+        "wavefront_cornell_64x64_4spp": dict(
+            scene=make_cornell_scene,
+            cfg=RenderConfig(width=64, height=64, max_depth=10,
+                             renderer="wavefront", intersect="bvh",
                              pool_size=4096),
             chunks=(2, 2)),
         "cornell_nee_64x64_4spp": dict(
-            scene=cornell,
+            scene=make_cornell_scene,
             cfg=RenderConfig(width=64, height=64, max_depth=10,
                              renderer="wavefront", nee=True,
                              pool_size=4096),

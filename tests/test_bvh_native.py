@@ -37,7 +37,7 @@ def test_native_degenerate(rng):
 
 
 def test_native_dfs_contiguity(rng):
-    """Subtree triangle ranges must be contiguous (clusters rely on it)."""
+    """Subtree triangle ranges must be contiguous (DFS leaf order)."""
     tris = rng.uniform(-5, 5, (777, 3, 3)).astype(np.float32)
     bvh = build_triangle_bvh_native(tris, leaf_size=4)
     meta = bvh.nodes_meta

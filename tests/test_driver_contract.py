@@ -1,17 +1,18 @@
-"""Driver-contract tests (VERDICT r4 items 1c and 8).
+"""Entry-point contract tests.
 
-The round driver consumes exactly three artifacts from this repo:
+The entry points other programs run from this repo:
 
 - ``bench.py``            -> prints ONE JSON line, no matter what
-                             (BENCH_r04 was rc=124/parsed=null because
-                             a ~20-min external kill landed before the
-                             orchestrator printed; these tests pin the
-                             budget + signal-abort emission paths).
-- ``__graft_entry__.entry``            -> jittable single-chip forward.
+                             (these tests pin the budget and
+                             signal-abort emission paths), and fails
+                             without a GPU unless ``--cpu``.
+- ``chip_smoke.py``       -> exits non-zero with no result line where
+                             there is no GPU or no repository.
+- ``__graft_entry__.entry``            -> jittable single-device forward.
 - ``__graft_entry__.dryrun_multichip`` -> 8-virtual-device sharded step.
 
 Reference analog for the bench contract: the always-available
-samples/sec printout, /root/reference/src/RendererPT.cpp:599-605.
+samples/sec printout, src/RendererPT.cpp:599-605.
 """
 
 import json
@@ -39,7 +40,7 @@ def _scrubbed_env():
     8-device XLA_FLAGS (bench must behave as it does under the driver,
     which invokes it with a clean env)."""
     env = dict(os.environ)
-    for var in ("XLA_FLAGS", "LPT_TPU_TESTS", "LPT_BENCH_BUDGET_S"):
+    for var in ("XLA_FLAGS", "LPT_GPU_TESTS", "LPT_BENCH_BUDGET_S"):
         env.pop(var, None)
     return env
 
@@ -102,6 +103,42 @@ def test_bench_sigterm_emits_line():
     lines = _json_lines(stdout)
     assert len(lines) == 1, stdout
     _check_result_schema(lines[0])
+
+
+def test_bench_without_gpu_fails():
+    """Without --cpu, a stage that finds no GPU fails the run (exit 2)
+    and the one line carries no value."""
+    env = _scrubbed_env()
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench.py"), "--quick"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    lines = _json_lines(proc.stdout)
+    assert len(lines) == 1, proc.stdout
+    _check_result_schema(lines[0])
+    assert lines[0]["value"] is None
+    assert "no GPU" in lines[0]["extras"]["note"]
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_gpu(tmp_path, alone):
+    """chip_smoke.py prints no result line and exits non-zero on a host
+    without a GPU, and in a directory holding nothing else of the
+    repository."""
+    import shutil
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = _scrubbed_env()
+    env["JAX_PLATFORMS"] = "cpu"
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, script], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=cwd)
+    assert proc.returncode != 0
+    assert not _json_lines(proc.stdout), proc.stdout
 
 
 def test_graft_entry_fn_runs():

@@ -1,11 +1,12 @@
-"""GLB (binary glTF) container support."""
+"""GLB (binary glTF) container support: reading and writing."""
 
 import json
 import struct
 
 import numpy as np
+import pytest
 
-from logipathtracer_tpu.scene.gltf import load_gltf
+from logipathtracer_tpu.scene.gltf import load_gltf, write_glb
 
 
 def _build_glb(tmp_path):
@@ -55,3 +56,45 @@ def test_glb_roundtrip(tmp_path):
     assert np.allclose(prim.positions[0, 1], [1, 0, 0])
     assert np.allclose(prim.normals[0, 0], [0, 0, 1])
     assert g.materials[0].base_color_factor[0] == 1.0
+
+
+@pytest.mark.parametrize("make", ["cornell", "box"])
+def test_write_glb_roundtrip(tmp_path, make):
+    """write_glb -> load_gltf reproduces the generated scene exactly:
+    triangles, normals, uvs, world matrices, materials and cameras."""
+    from logipathtracer_tpu.scene.procedural import (make_box_scene,
+                                                     make_cornell_scene)
+    g = (make_cornell_scene() if make == "cornell"
+         else make_box_scene(spheres=2, subdiv=1))
+    h = load_gltf(write_glb(g, str(tmp_path / "s.glb")))
+    assert [n.name for n in h.mesh_nodes] == [n.name for n in g.mesh_nodes]
+    for a, b in zip(g.mesh_nodes, h.mesh_nodes):
+        np.testing.assert_array_equal(a.world_matrix, b.world_matrix)
+        for pa, pb in zip(a.primitives, b.primitives):
+            np.testing.assert_array_equal(pa.positions, pb.positions)
+            np.testing.assert_array_equal(pa.normals, pb.normals)
+            assert (pa.uvs is None) == (pb.uvs is None)
+            if pa.uvs is not None:
+                np.testing.assert_array_equal(pa.uvs, pb.uvs)
+            assert pa.material == pb.material
+    for ma, mb in zip(g.materials, h.materials):
+        assert ma.name == mb.name
+        np.testing.assert_allclose(ma.base_color_factor,
+                                   mb.base_color_factor)
+        np.testing.assert_allclose(ma.emissive_factor, mb.emissive_factor)
+        assert (ma.metallic_factor, ma.roughness_factor,
+                ma.transmission_factor) == pytest.approx(
+            (mb.metallic_factor, mb.roughness_factor,
+             mb.transmission_factor))
+        assert ma.ior == pytest.approx(mb.ior)
+    assert len(h.cameras) == len(g.cameras)
+    for ca, cb in zip(g.cameras, h.cameras):
+        np.testing.assert_array_equal(ca.world_matrix, cb.world_matrix)
+        assert ca.yfov == cb.yfov
+
+
+def test_write_glb_rejects_textures(tmp_path):
+    from logipathtracer_tpu.scene.procedural import make_box_scene
+    with pytest.raises(ValueError, match="untextured"):
+        write_glb(make_box_scene(spheres=1, subdiv=1, textured=True),
+                  str(tmp_path / "t.glb"))

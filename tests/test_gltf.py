@@ -1,5 +1,7 @@
-"""glTF loader tests against the reference's checked-in scene
-(resources/cornell_box.gltf; counts documented in SURVEY.md §6)."""
+"""glTF loader tests on the generated cornell-class scene, written as
+a GLB and read back (conftest.py ``cornell_gltf``).  It has the shape
+of the reference's resources/cornell_box.gltf (counts in SURVEY.md §6,
+BASELINE.md)."""
 
 import numpy as np
 
@@ -15,7 +17,7 @@ def test_cornell_counts(cornell_gltf):
 def test_cornell_camera(cornell_gltf):
     cam = cornell_gltf.cameras[0]
     assert abs(cam.yfov - 0.39959652046304894) < 1e-9
-    # Camera node chain: Camera(translate 6,1,0; rot) -> Camera_Orientation.
+    # Same placement as the reference asset's camera node chain.
     assert np.allclose(cam.world_matrix[:3, 3], [6, 1, 0], atol=1e-5)
     # Orthonormal basis.
     r = cam.world_matrix[:3, :3]
@@ -38,12 +40,12 @@ def test_cornell_materials(cornell_gltf):
 
 
 def test_world_matrices(cornell_gltf):
-    # Walls are translated (0,1,0); StanfordBunny has TRS with scale 5.
+    # Walls are translated (0,1,0); the blob has TRS with scale 5.
     nodes = {n.name: n for n in cornell_gltf.mesh_nodes}
     assert np.allclose(nodes["BackPlane"].world_matrix[:3, 3], [0, 1, 0])
-    bunny = nodes["StanfordBunny"].world_matrix
+    blob = nodes["Blob"].world_matrix
     # Scale 5 on each column of the rotation part.
-    assert np.allclose(np.linalg.norm(bunny[:3, :3], axis=0), 5.0, atol=1e-4)
+    assert np.allclose(np.linalg.norm(blob[:3, :3], axis=0), 5.0, atol=1e-4)
 
 
 def test_triangle_soup_shapes(cornell_gltf):

@@ -38,12 +38,12 @@ def test_golden_is_sane():
     assert rad.max() > 1.0  # emissive panel
 
 
-# -- production-path goldens (VERDICT r3 item 5) ------------------------
+# -- wavefront-path goldens --------------------------------------------
 # Generated by scripts/make_goldens.py; specs shared via golden_specs.py.
-# These pin the pooled wavefront + compact worklist sweep + carryover,
-# NEE, textures, and the outside-class procedural scene end to end —
-# the cross-implementation identity tests alone would miss a correlated
-# regression in a shared stage (e.g. shade_step).
+# These pin the pooled wavefront + carryover, NEE, textures, and the
+# outside-class procedural scene end to end — the cross-implementation
+# identity tests alone would miss a correlated regression in a shared
+# stage (e.g. shade_step).
 
 import pytest  # noqa: E402
 

@@ -1,8 +1,9 @@
-"""Procedural scenes compile and render (the outside.gltf-scale
-stand-ins, SURVEY.md §6)."""
+"""Procedural scenes compile and render (the cornell- and
+outside-class stand-ins for the reference assets, SURVEY.md §6)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from logipathtracer_tpu.config import RenderConfig
 from logipathtracer_tpu.render.megakernel import render_sample
@@ -61,3 +62,30 @@ def test_outside_scene_profile_and_render():
         jnp.asarray([3, 11], jnp.uint32)))
     assert np.isfinite(img).all()
     assert img.max() > 0
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_cornell_scene_profile(seed):
+    """The cornell-class generator has the reference cornell_box's
+    shape for every seed (BASELINE.md: 11 meshes, 12,956 triangles,
+    6 materials with 2 transmissive and emissive panels, 1 camera with
+    yfov ~0.4), and is a pure function of its seed."""
+    from logipathtracer_tpu.scene.procedural import make_cornell_scene
+
+    g = make_cornell_scene(seed=seed)
+    assert len(g.mesh_nodes) == 11
+    assert g.triangle_count == 12_956
+    assert len(g.materials) == 6
+    assert sum(m.transmission_factor > 0 for m in g.materials) == 2
+    emissive = {i for i, m in enumerate(g.materials)
+                if m.emissive_factor.max() > 0}
+    panels = [n for n in g.mesh_nodes
+              if n.primitives[0].material in emissive]
+    assert len(panels) == 2
+    assert len(g.cameras) == 1 and abs(g.cameras[0].yfov - 0.4) < 1e-3
+    again = make_cornell_scene(seed=seed)
+    other = make_cornell_scene(seed=seed + 1)
+    blob = lambda s: [n for n in s.mesh_nodes if n.name == "Blob"][0]
+    pos = lambda s: blob(s).primitives[0].positions
+    np.testing.assert_array_equal(pos(g), pos(again))
+    assert not np.array_equal(pos(g), pos(other))

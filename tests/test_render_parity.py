@@ -13,7 +13,7 @@ import pytest
 
 from logipathtracer_tpu.config import RenderConfig
 from logipathtracer_tpu.render.megakernel import render_sample
-from tests import oracle
+import oracle
 
 UBO_SEED = (48271, 16807)
 

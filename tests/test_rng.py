@@ -14,7 +14,7 @@ import pytest
 
 from logipathtracer_tpu.ops.rng import (rand_parity, rand_parity_masked,
                                         seed_from_pixel)
-from tests.oracle import Rng
+from oracle import Rng
 
 _C_SRC = r"""
 #include <cstdint>

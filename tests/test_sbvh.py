@@ -31,8 +31,7 @@ def test_sbvh_structure():
     # Every original triangle referenced at least once; duplicates allowed.
     assert set(bvh.prim_order.tolist()) == set(range(n))
     assert bvh.prim_order.shape[0] >= n
-    # Leaves partition [0, num_refs) contiguously in DFS order (the
-    # invariant scene/clusters.py cuts on).
+    # Leaves partition [0, num_refs) contiguously in DFS order.
     leaves = meta[meta[:, 0] == 1]
     spans = sorted((int(a), int(b)) for a, b in leaves[:, 1:3])
     cur = 0

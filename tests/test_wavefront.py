@@ -179,81 +179,3 @@ def test_wavefront_row_slab(cornell_scene):
     np.testing.assert_allclose(tiled, np.asarray(full),
                                rtol=1e-5, atol=1e-6)
     assert float(rays_t) + float(rays_b) == float(rays_full)
-
-
-@pytest.mark.parametrize("knobs", [dict(), dict(nee=True),
-                                   dict(sort_rays=False),
-                                   dict(lazy_regen=4)])
-def test_pool_cm_bit_identical(cornell_scene, knobs):
-    """cfg.pool_cm stores the pool component-major ([3, P] rows) — a
-    pure relayout: every arithmetic op sees the same values in the same
-    order, so images and ray counts match the [P, 3] pool exactly up to
-    XLA fusion ULPs (the layouts compile to different graphs, so FMA
-    formation can differ — observed only on the NEE shadow-geometry
-    chain, ~1% of pixels off by 1 ulp; everything else is
-    BIT-identical).  The invariant that lets the TPU A/B flip the
-    default on timings alone."""
-    cfg = RenderConfig(width=32, height=32, max_depth=5, intersect="bvh",
-                       **knobs)
-    cam = cornell_scene.cameras[0]
-    args = (jnp.asarray(cam.world_matrix), jnp.float32(cam.yfov),
-            jnp.asarray(SEEDS[:2], jnp.uint32))
-    pm, rays_pm, it_pm = render_wavefront(cornell_scene, cfg, *args,
-                                          pool=512)
-    cm, rays_cm, it_cm = render_wavefront(
-        cornell_scene, cfg.replace(pool_cm=True), *args, pool=512)
-    pm, cm = np.asarray(pm), np.asarray(cm)
-    if knobs.get("nee"):
-        np.testing.assert_allclose(cm, pm, rtol=3e-6, atol=1e-7)
-    else:
-        assert (pm.view(np.int32) == cm.view(np.int32)).all()
-    assert float(rays_pm) == float(rays_cm)
-    assert int(it_pm) == int(it_cm)
-
-
-def test_pool_cm_carryover_bit_identical(cornell_scene):
-    """The persistent-pool chunk/drain path under pool_cm: same
-    bit-exactness invariant across chunk boundaries."""
-    from logipathtracer_tpu.render.wavefront import (wavefront_chunk,
-                                                     wavefront_drain,
-                                                     wavefront_pool_state)
-    cfg0 = RenderConfig(width=32, height=32, max_depth=4, intersect="bvh")
-    cam = cornell_scene.cameras[0]
-    args = (jnp.asarray(cam.world_matrix), jnp.float32(cam.yfov),
-            jnp.asarray(SEEDS[:2], jnp.uint32))
-    outs = {}
-    for cmf in (False, True):
-        cfg = cfg0.replace(pool_cm=cmf)
-        st = wavefront_pool_state(512, 32 * 32, cm=cmf)
-        st = wavefront_chunk(cornell_scene, cfg, *args, st)
-        st = wavefront_chunk(cornell_scene, cfg, *args, st)
-        st = wavefront_drain(cornell_scene, cfg, st)
-        outs[cmf] = np.asarray(st["accum"])
-    assert (outs[False].view(np.int32) == outs[True].view(np.int32)).all()
-
-
-@pytest.mark.parametrize("knobs", [dict(nee=True), dict(textured=True)])
-def test_pool_cm_fused_kernel_paths(knobs):
-    """The cm layout through the FUSED shade kernel's special paths —
-    in-kernel NEE (shadow-query rows, contribution add) and the
-    textured prologue (which transposes at the [R, ...] boundary) —
-    vs the same config on the [P, 3] pool.  CPU runs shade through jnp
-    by default, so these force shade_interpret to trace the kernel."""
-    from logipathtracer_tpu.scene.compile import compile_scene
-    from logipathtracer_tpu.scene.procedural import make_box_scene
-
-    textured = knobs.pop("textured", False)
-    cfg = RenderConfig(width=32, height=32, max_depth=4, intersect="bvh",
-                       shade="shade_interpret", shade_tile=256, **knobs)
-    scene = compile_scene(make_box_scene(spheres=1, subdiv=1,
-                                         textured=textured), cfg)
-    cam = scene.cameras[0]
-    args = (jnp.asarray(cam.world_matrix), jnp.float32(cam.yfov),
-            jnp.asarray(SEEDS[:1], jnp.uint32))
-    pm, rays_pm, _ = render_wavefront(scene, cfg, *args, pool=512)
-    cm, rays_cm, _ = render_wavefront(scene, cfg.replace(pool_cm=True),
-                                      *args, pool=512)
-    pm, cm = np.asarray(pm), np.asarray(cm)
-    assert float(rays_pm) == float(rays_cm)
-    # Same FMA-formation caveat as test_pool_cm_bit_identical.
-    np.testing.assert_allclose(cm, pm, rtol=3e-6, atol=1e-7)
